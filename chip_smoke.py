@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+In order, it
+1. builds the four CUDA kernels (sm_90a) from the sources in this checkout;
+2. holds each kernel against its plain PyTorch twin on the card, at the
+   shapes of the full-width main path (a 5 x 2**20 sketch, a 2**24-element
+   chunk at a 64-bit offset above 2**32, k = 25,000), and times both;
+3. runs 2 rounds of the reduced model on the card and on the CPU from the
+   same weights, and compares them (the port's own reference on a small
+   input);
+4. runs 3 full-width FetchSGD rounds of gpt2s-federated through the driver
+   (``python -m repro_torch.launch.train_lm --full --rounds 3``) from
+   torch-initialised random weights, with every kernel's launch count set
+   to 0 just before and read just after;
+5. prints the kernels line, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, so the script exits non-zero and prints no
+result; so does a machine without CUDA, or a directory without the
+package.  Nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+OUT = ROOT / "chiprun_out"
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
+# outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+ROWS, COLS, K = 5, 1 << 20, 25_000       # the --full sketch
+CHUNK = 1 << 24                          # encode / estimate check chunk
+OFFSET = (1 << 32) + 12_345              # a 64-bit offset above 2**32
+D_FULL = 162_148_608                     # gpt2s-federated parameters
+N_CHUNKS = 17                            # its layout's chunks (pinned in
+                                         # tests/test_torch_model.py)
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise CheckFailed(what)
+    print(f"  ok: {what}")
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time on the card: bytes at HBM rate vs f32 ops at peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up.
+
+    A 50 ms device sleep is queued first, so that the host has enqueued
+    every launch before the device reaches the start event: the events
+    then time the device's work, not the host's launch rate.
+    """
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)   # clock cycles: ~50 ms at ~2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(torch, a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def card_checks(torch, dev):
+    """Every kernel against its plain twin at the main path's shapes."""
+    from repro_torch.kernels import count_sketch as cuda_cs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import server_step as cuda_ss
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    # -- encode --------------------------------------------------------------
+    print("encode: 2**24 values at offset 2**32 + 12345 into 5 x 2**20")
+    ints = torch.randint(-8, 9, (CHUNK,), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.float32)
+    got = cuda_cs.sketch_encode(ints, OFFSET, ROWS, COLS)
+    check(torch.equal(got, ref.sketch_encode(ints, OFFSET, ROWS, COLS)),
+          "encode exact on integer-valued f32")
+    ints_bf16 = ints.to(torch.bfloat16)
+    check(torch.equal(cuda_cs.sketch_encode(ints_bf16, OFFSET, ROWS, COLS),
+                      got), "encode exact on integer-valued bf16")
+    reals = torch.randn(CHUNK, generator=gen, device=dev)
+    got = cuda_cs.sketch_encode(reals, OFFSET, ROWS, COLS)
+    want = ref.sketch_encode(reals, OFFSET, ROWS, COLS)
+    err = max_abs_err(torch, got, want)
+    # ~16 normal values per cell summed in another order by the atomics
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+          f"encode allclose on reals (rtol 1e-5, atol 1e-4): max err {err:g}")
+    table = got
+    scratch = torch.zeros_like(table)
+    ms = time_ms(torch, lambda: cuda_cs.sketch_encode(
+        reals, OFFSET, ROWS, COLS, out=scratch), 10)
+    plain = time_ms(torch, lambda: ref.sketch_encode(
+        reals, OFFSET, ROWS, COLS, out=scratch), 3)
+    b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4, 2 * ROWS * CHUNK)
+    rows["encode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                          bound_by=by)
+
+    # -- estimate ------------------------------------------------------------
+    print("estimate: 2**24 ids from the 5 x 2**20 table")
+    got = cuda_cs.sketch_estimate(table, OFFSET, CHUNK)
+    want = ref.sketch_estimate(table, OFFSET, CHUNK)
+    check(torch.equal(got, want), "estimate exact")
+    ms = time_ms(torch, lambda: cuda_cs.sketch_estimate(table, OFFSET, CHUNK),
+                 10)
+    plain = time_ms(torch, lambda: ref.sketch_estimate(table, OFFSET, CHUNK),
+                    3)
+    comparators = sum(len(range(p & 1, ROWS - 1, 2)) for p in range(ROWS))
+    b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4,
+                     CHUNK * (ROWS + 2 + 2 * comparators))
+    rows["estimate"] = dict(max_abs_err=max_abs_err(torch, got, want), ms=ms,
+                            plain_ms=plain, bound_ms=b, bound_by=by)
+
+    # -- momentum_error ------------------------------------------------------
+    print("momentum_error: three 5 x 2**20 tables")
+    agg, su, se = (torch.randn(ROWS, COLS, generator=gen, device=dev)
+                   for _ in range(3))
+    lr = torch.full((), 0.05, device=dev)
+    got = cuda_ss.momentum_error(agg, su, se, lr, 0.9)
+    want = ref.momentum_error(agg, su, se, lr, 0.9)
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    check(all(torch.allclose(g, w, rtol=1e-6, atol=0)
+              for g, w in zip(got, want)),
+          f"momentum_error allclose (rtol 1e-6): max err {err:g}")
+    ms = time_ms(torch, lambda: cuda_ss.momentum_error(agg, su, se, lr, 0.9),
+                 50)
+    plain = time_ms(torch, lambda: ref.momentum_error(agg, su, se, lr, 0.9),
+                    50)
+    b, by = bound_ms(5 * ROWS * COLS * 4, 4 * ROWS * COLS)
+    rows["momentum_error"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=b, bound_by=by)
+
+    # -- topk_mask -----------------------------------------------------------
+    print("topk_mask: k = 25,000 ids over d = 162,148,608")
+    ids = torch.unique(torch.randint(0, D_FULL, (2 * K,), generator=gen,
+                                     device=dev))
+    ids = ids[torch.randperm(ids.numel(), generator=gen, device=dev)][:K]
+    check(ids.numel() == K, "25,000 distinct ids")
+    vals = torch.randint(-20, 21, (K,), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.float32)
+    su_i, se_i = (torch.randint(-50, 51, (ROWS, COLS), generator=gen,
+                                device=dev, dtype=torch.int32).float()
+                  for _ in range(2))
+    err = 0.0
+    for mode in ("zero", "subtract"):
+        for masking in (True, False):
+            kw = dict(error_mode=mode, momentum_masking=masking)
+            got = cuda_ss.topk_mask(su_i.clone(), se_i.clone(), ids, vals, 0,
+                                    **kw)
+            want = ref.topk_mask(su_i.clone(), se_i.clone(), ids, vals, 0,
+                                 **kw)
+            err = max(err, *(max_abs_err(torch, g, w)
+                             for g, w in zip(got, want)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"topk_mask {mode} masking={masking} "
+                  f"{'bitwise' if mode == 'zero' else 'exact on integers'}")
+    before = cuda_ss.LAUNCHES["topk_mask"]
+    empty = ids[:0]
+    got = cuda_ss.topk_mask(su_i.clone(), se_i.clone(), empty, vals[:0], 0)
+    check(torch.equal(got[0], su_i) and torch.equal(got[1], se_i)
+          and cuda_ss.LAUNCHES["topk_mask"] == before,
+          "topk_mask with k = 0 leaves the tables and launches nothing")
+    su_t, se_t = su_i.clone(), se_i.clone()
+    ms = time_ms(torch, lambda: cuda_ss.topk_mask(su_t, se_t, ids, vals, 0),
+                 50)
+    plain = time_ms(torch, lambda: ref.topk_mask(su_t, se_t, ids, vals, 0),
+                    10)
+    # zero mode with masking (the main path): the ids read, one 4-byte
+    # store per (id, row) into each of se and su; no float operations
+    b, by = bound_ms(K * 8 + 2 * ROWS * K * 4, 0)
+    rows["topk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                             bound_ms=b, bound_by=by)
+    return rows
+
+
+def small_reference_run(torch, dev):
+    """2 rounds of the reduced model on the card and on the CPU (plain
+    twins) from the same weights: the losses and the updates agree."""
+    from repro_torch import configs
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train_lm
+    from repro_torch.models import transformer
+
+    cfg = configs.get_smoke("gpt2s-federated")
+    fs_cfg = F.FetchSGDConfig(rows=5, cols=1 << 14, k=512)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=32, n_clients=8)
+    init = dict(layout_lib.flatten(transformer.init_params(cfg, seed=1)))
+    runs = {}
+    for name, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        params = layout_lib.unflatten(
+            list(init), [x.to(device, copy=True) for x in init.values()])
+        records, _ = train_lm.train(cfg, fs_cfg, params, dataset, rounds=2,
+                                    clients_per_round=4, peak_lr=0.16,
+                                    device=device, log=lambda *_: None)
+        runs[name] = ([r.loss for r in records],
+                      {p: x.cpu() - init[p]
+                       for p, x in layout_lib.flatten(params)})
+    (l_gpu, s_gpu), (l_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+    print(f"  losses card {l_gpu}  cpu {l_cpu}")
+    check(all(math.isfinite(x) for x in l_gpu), "reduced-model losses finite")
+    check(math.isclose(l_gpu[0], l_cpu[0], rel_tol=1e-4),
+          "round-0 loss on the card = on the CPU (rtol 1e-4)")
+    check(all(math.isclose(a, b, rel_tol=1e-2) for a, b in zip(l_gpu, l_cpu)),
+          "round losses on the card = on the CPU (rtol 1e-2)")
+    moved = sum(int(torch.count_nonzero(s)) for s in s_cpu.values())
+    differ = sum(int((~torch.isclose(s_gpu[p], s_cpu[p], rtol=1e-2,
+                                     atol=1e-6)).sum()) for p in s_cpu)
+    check(moved > 0 and differ <= 0.1 * moved,
+          f"updates agree: {differ} of {moved} moved coordinates differ")
+
+
+def main_path():
+    """3 full-width rounds through the driver, counting kernel launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_lm
+
+    ops.reset_launch_counts()
+    records, _ = train_lm.main(["--full", "--rounds", "3"], log=print)
+    counts = ops.launch_counts()
+    print(f"launches on the main path: {counts}")
+    rounds, clients, n_chunks = len(records), 4, N_CHUNKS
+    check(counts == {"encode": rounds * clients * n_chunks,
+                     "estimate": rounds * n_chunks,
+                     "momentum_error": rounds, "topk_mask": rounds},
+          f"every kernel launched: {n_chunks} chunks x {clients} clients "
+          f"x {rounds} rounds encodes, {n_chunks} estimates, 1 momentum_error "
+          f"and 1 topk_mask a round")
+    for r in records:
+        check(math.isfinite(r.loss), f"round {r.round} loss {r.loss} finite")
+        check(r.delta_size == K and r.delta_unique == K,
+              f"round {r.round} Delta has exactly {K} distinct entries")
+    return records, counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    # float32 matmuls in full float32, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name}, torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+
+    t0 = time.time()
+    lib_path = build.build()
+    build.library()
+    print(f"built {lib_path.name} from {len(build.sources())} sources in "
+          f"{time.time() - t0:.1f}s")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke_build.log").write_text(build.build_log())
+
+    kernels = card_checks(torch, dev)
+    print("reduced model, card vs CPU:")
+    small_reference_run(torch, dev)
+    print("main path: train_lm --full --rounds 3")
+    records, counts = main_path()
+    for r in records:
+        print(f"round {r.round}: loss {r.loss:.6f}  {r.seconds:.3f} s/round")
+
+    meta = {
+        "encode": ("src/repro_torch/kernels/csrc/encode.cu",
+                   "src/repro/kernels/count_sketch.py:59"),
+        "estimate": ("src/repro_torch/kernels/csrc/estimate.cu",
+                     "src/repro/kernels/count_sketch.py:134"),
+        "momentum_error": ("src/repro_torch/kernels/csrc/momentum_error.cu",
+                           "src/repro/kernels/server_step.py:73"),
+        "topk_mask": ("src/repro_torch/kernels/csrc/topk_mask.cu",
+                      "src/repro/kernels/server_step.py:103"),
+    }
+    line = {"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": counts[k], "max_abs_err": kernels[k]["max_abs_err"],
+         "ms": kernels[k]["ms"], "kernel_ms": kernels[k]["ms"],
+         "plain_ms": kernels[k]["plain_ms"],
+         "bound_ms": kernels[k]["bound_ms"],
+         "bound_by": kernels[k]["bound_by"], "library_ms": None}
+        for k, (src, rep) in meta.items()]}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(json.dumps(line))
+    print(smi.stdout.strip())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""Architecture registry (port of ``repro.configs``).
+
+Only the paper's own model, ``gpt2s-federated``, is ported so far.
+``get_config(name)`` returns the full ArchConfig; ``get_smoke(name)`` the
+reduced same-family variant.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ArchConfig
+
+ARCHS = ("gpt2s-federated",)
+
+_MOD = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
+
+
+def _module(name: str):
+    if name not in _MOD:
+        raise KeyError(f"unknown arch {name!r}; available: {list(ARCHS)}")
+    return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str) -> ArchConfig:
+    return _module(name).SMOKE
+
+
+def list_archs() -> tuple[str, ...]:
+    return ARCHS

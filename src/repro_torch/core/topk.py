@@ -1,0 +1,102 @@
+"""Top-k over the flat parameter space, and the sparse update.
+
+Port of ``repro.core.topk``.  ``Delta = Top-k(U(S_e))`` — the k largest
+|estimate| coordinates of the error sketch over all d global ids — is
+found chunk by chunk: each chunk's estimates (the estimate kernel) give
+per-chunk candidates, and one top-k over the pool picks the winners.
+Both top-k steps stay library calls (``torch.topk``), as ``lax.top_k``
+stayed XLA in the reference.  ``torch.topk`` does not promise
+``lax.top_k``'s order among equal magnitudes.
+
+Exactness: with at most ``EXACT_CHUNK_LIMIT`` chunks every chunk gives k
+candidates, so the result is exactly Top-k(U(S_e)); larger layouts cap
+the per-chunk count (``_chunk_k``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+
+from . import layout as layout_lib
+
+EXACT_CHUNK_LIMIT = 64   # <= this many chunks: keep per-chunk k exact
+
+
+@dataclasses.dataclass
+class SparseDelta:
+    """k-sparse update over the global flat parameter space."""
+
+    chunk_id: torch.Tensor   # (k,) int64 — index into layout.chunks
+    local_idx: torch.Tensor  # (k,) int64 — element offset within the chunk
+    values: torch.Tensor     # (k,) float32
+    k: int
+
+
+def _chunk_k(k: int, chunk_size: int, num_chunks: int) -> int:
+    if num_chunks <= EXACT_CHUNK_LIMIT:
+        return min(k, chunk_size)
+    return min(k, chunk_size, max(512, (4 * k) // num_chunks))
+
+
+def topk_from_sketch(table: torch.Tensor, layout: layout_lib.ParamLayout,
+                     k: int, key: int = 0) -> SparseDelta:
+    """Top-|.|-k of U(table) over the whole layout (chunked unsketch)."""
+    nall = layout.num_chunks
+    cand_vals, cand_local, cand_chunk = [], [], []
+    for g in layout.groups:
+        size = g.n_rows * g.row_len
+        kk = _chunk_k(k, size, nall)
+        for ci in g.chunk_ids:
+            est = kernel_ops.sketch_estimate(table, layout.chunks[ci].offset,
+                                             size, key)
+            idx = torch.topk(est.abs(), kk).indices
+            cand_vals.append(est[idx])
+            cand_local.append(idx)
+            cand_chunk.append(torch.full((kk,), ci, dtype=torch.int64,
+                                         device=table.device))
+    vals = torch.cat(cand_vals)
+    k_eff = min(k, vals.numel())
+    sel = torch.topk(vals.abs(), k_eff).indices
+    return SparseDelta(chunk_id=torch.cat(cand_chunk)[sel],
+                       local_idx=torch.cat(cand_local)[sel],
+                       values=vals[sel], k=k_eff)
+
+
+def global_ids(delta: SparseDelta, layout: layout_lib.ParamLayout
+               ) -> torch.Tensor:
+    """(k,) int64 global element ids of the extracted coordinates."""
+    offs = torch.tensor([ch.offset for ch in layout.chunks],
+                        dtype=torch.int64, device=delta.values.device)
+    return offs[delta.chunk_id] + delta.local_idx
+
+
+def apply_delta(params: dict, layout: layout_lib.ParamLayout,
+                delta: SparseDelta, scale: float = 1.0) -> dict:
+    """params <- params - scale * Delta, **in place** (``index_add_`` into
+    each leaf's flat view); returns ``params``.
+
+    Ids outside a leaf add ``-0.0`` at its element 0, which leaves every
+    value unchanged, so no host sync is needed to split the ids by leaf.
+    """
+    gid = global_ids(delta, layout)
+    leaves = [leaf for _, leaf in layout_lib.flatten(params)]
+    with torch.no_grad():
+        for leaf, start in zip(leaves, layout.leaf_offsets):
+            flat = leaf.view(-1)
+            mine = (gid >= start) & (gid < start + flat.numel())
+            idx = torch.where(mine, gid - start, 0)
+            vals = torch.where(mine, delta.values, 0.0).to(flat.dtype)
+            flat.index_add_(0, idx, vals, alpha=-scale)
+    return params
+
+
+def densify(delta: SparseDelta, layout: layout_lib.ParamLayout
+            ) -> torch.Tensor:
+    """The sparse delta as the full flat d-vector (tests only)."""
+    flat = torch.zeros(layout.total, dtype=torch.float32,
+                       device=delta.values.device)
+    return flat.index_add_(0, global_ids(delta, layout), delta.values)

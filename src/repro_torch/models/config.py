@@ -1,0 +1,69 @@
+"""Architecture configuration.
+
+Port of ``repro.models.config`` for the dense attention models the port
+runs so far: a model is ``n_layers`` units of ``unit_pattern``, with
+parameters stacked on a leading ``(n_units,)`` dim as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str          # attn (the only kind ported so far)
+    moe: bool = False  # MoE FFN (not ported)
+    ffn: bool = True   # has an FFN sub-block
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    unit_pattern: tuple[LayerSpec, ...] = (LayerSpec("attn"),)
+    head_dim: int = 0          # 0 -> d_model // n_heads
+    act: str = "gelu"          # gelu (swiglu is not ported)
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    attn_chunk: int = 512      # query-block size for chunked attention
+    loss_chunk: int = 512      # sequence-block size for chunked xent
+
+    def __post_init__(self):
+        if self.n_layers % len(self.unit_pattern) != 0:
+            raise ValueError(
+                f"{self.name}: n_layers {self.n_layers} not divisible by "
+                f"unit length {len(self.unit_pattern)}")
+
+    @property
+    def n_units(self) -> int:
+        return self.n_layers // len(self.unit_pattern)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+
+def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:
+    """Reduced variant of the same family: <=2 units, d_model<=256."""
+    d_model = min(cfg.d_model, 256)
+    n_heads = min(cfg.n_heads, 4)
+    changes = dict(
+        name=cfg.name + "-smoke",
+        n_layers=len(cfg.unit_pattern) * min(2, cfg.n_units),
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=max(1, min(cfg.n_kv_heads, n_heads)),
+        head_dim=d_model // n_heads,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab=min(cfg.vocab, 512),
+        attn_chunk=64,
+        loss_chunk=64,
+    )
+    changes.update(overrides)
+    return dataclasses.replace(cfg, **changes)

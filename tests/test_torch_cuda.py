@@ -1,0 +1,162 @@
+"""The four CUDA kernels against their plain PyTorch twins, on the card.
+
+Every test here needs a CUDA device (Hopper, sm_90a) and skips without
+one; the file imports no JAX, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: integer-valued inputs keep every float32 sum exact, so the
+atomics' order of summation cannot show and those comparisons are exact;
+the estimate, momentum/error and zeroing kernels round like their twins
+and are compared exactly; real-valued encodes, whose atomics sum in
+another order, use rtol=1e-5, atol=1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import fetchsgd as F
+from repro_torch.core import layout as L
+from repro_torch.core import topk as T
+from repro_torch.kernels import count_sketch as cuda_cs
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import server_step as cuda_ss
+
+pytestmark = pytest.mark.cuda
+
+TABLES = [(2, 384), (9, 640), (4, 1920), (3, 130), (4, 300), (5, 1000),
+          (10, 1 << 16)]
+OFFSETS = [0, 2**31 - 5, 2**32 - 3, 2**41 + 99]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def ints(gen, shape, dev, lim=8):
+    return torch.randint(-lim, lim + 1, shape, generator=gen,
+                         dtype=torch.int32).float().to(dev)
+
+
+@pytest.mark.parametrize("rows,cols", TABLES)
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_encode_matches_plain(dev, rows, cols, offset):
+    gen = torch.Generator().manual_seed(rows * cols)
+    v = ints(gen, (5000,), dev)
+    before = cuda_cs.LAUNCHES["encode"]
+    got = cuda_cs.sketch_encode(v, offset, rows, cols, 3)
+    assert cuda_cs.LAUNCHES["encode"] == before + 1
+    torch.testing.assert_close(got, ref.sketch_encode(v, offset, rows, cols,
+                                                      3), rtol=0, atol=0)
+    r = torch.randn(5000, generator=gen).to(dev)
+    torch.testing.assert_close(cuda_cs.sketch_encode(r, offset, rows, cols),
+                               ref.sketch_encode(r, offset, rows, cols),
+                               rtol=1e-5, atol=1e-4)
+    out = torch.ones(rows, cols, device=dev)
+    assert cuda_cs.sketch_encode(v.to(torch.bfloat16), offset, rows, cols, 3,
+                                 out=out) is out
+    torch.testing.assert_close(out, got + 1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,cols", TABLES)
+@pytest.mark.parametrize("offset", OFFSETS)
+def test_estimate_matches_plain(dev, rows, cols, offset):
+    gen = torch.Generator().manual_seed(rows + cols)
+    table = torch.randn(rows, cols, generator=gen).to(dev)
+    table[0, :7] = float("nan")
+    got = cuda_cs.sketch_estimate(table, offset, 7777, 2)
+    want = ref.sketch_estimate(table, offset, 7777, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("rows,cols", [(3, 130), (5, 1 << 20), (1, 7)])
+def test_momentum_error_matches_plain_bitwise(dev, rows, cols):
+    gen = torch.Generator().manual_seed(cols)
+    agg, su, se = (torch.randn(rows, cols, generator=gen).to(dev)
+                   for _ in range(3))
+    lr = torch.tensor(0.07, device=dev)
+    got = cuda_ss.momentum_error(agg, su, se, lr, 0.9)
+    torch.testing.assert_close(got, ref.momentum_error(agg, su, se, lr, 0.9),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,cols", TABLES)
+@pytest.mark.parametrize("error_mode", ["zero", "subtract"])
+@pytest.mark.parametrize("momentum_masking", [True, False])
+def test_topk_mask_matches_plain(dev, rows, cols, error_mode,
+                                 momentum_masking):
+    gen = torch.Generator().manual_seed(rows * 7 + cols)
+    su, se = ints(gen, (rows, cols), dev, 50), ints(gen, (rows, cols), dev, 50)
+    ids = torch.unique(torch.randint(0, 2**42, (300,), generator=gen)).to(dev)
+    vals = ints(gen, (ids.numel(),), dev, 20)
+    kw = dict(error_mode=error_mode, momentum_masking=momentum_masking)
+    got = cuda_ss.topk_mask(su.clone(), se.clone(), ids, vals, 1, **kw)
+    want = ref.topk_mask(su.clone(), se.clone(), ids, vals, 1, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_topk_mask_with_no_ids_launches_nothing(dev):
+    su, se = torch.randn(3, 384, device=dev), torch.randn(3, 384, device=dev)
+    before = cuda_ss.LAUNCHES["topk_mask"]
+    out = cuda_ss.topk_mask(su.clone(), se.clone(),
+                            torch.zeros(0, dtype=torch.int64, device=dev),
+                            torch.zeros(0, device=dev))
+    torch.testing.assert_close(out, (su, se), rtol=0, atol=0)
+    assert cuda_ss.LAUNCHES["topk_mask"] == before
+
+
+def test_dispatch_sends_cuda_tensors_to_the_kernels(dev):
+    ops.reset_launch_counts()
+    v = torch.randn(1000, device=dev)
+    table = ops.sketch_encode(v, 0, 3, 256)
+    ops.sketch_estimate(table, 0, 1000)
+    su, se = ops.momentum_error(table, table, table,
+                                torch.tensor(0.1, device=dev), 0.9)
+    ops.topk_mask(su, se, torch.arange(5, device=dev), torch.ones(5,
+                                                                  device=dev))
+    assert ops.launch_counts() == {"encode": 1, "estimate": 1,
+                                   "momentum_error": 1, "topk_mask": 1}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(dev):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_cs.sketch_encode(torch.zeros(10, dtype=torch.float16,
+                                          device=dev), 0, 3, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cs.sketch_encode(torch.zeros(20, device=dev)[::2], 0, 3, 128)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_cs.sketch_estimate(torch.zeros(11, 128, device=dev), 0, 10)
+    with pytest.raises(ValueError, match="int64"):
+        cuda_ss.topk_mask(torch.zeros(3, 128, device=dev),
+                          torch.zeros(3, 128, device=dev),
+                          torch.arange(4, dtype=torch.int32, device=dev),
+                          torch.ones(4, device=dev))
+
+
+@pytest.mark.parametrize("error_mode", ["zero", "subtract"])
+def test_server_rounds_on_the_card_match_the_cpu(dev, error_mode):
+    shapes = {"a": (64, 32), "b": (100,)}
+    lay = L.build_layout({k: torch.zeros(s) for k, s in shapes.items()},
+                         chunk_elems=500)
+    cfg = F.FetchSGDConfig(rows=5, cols=1000, k=20, error_mode=error_mode)
+    gen = torch.Generator().manual_seed(0)
+    st_c, st_g = F.init_state(cfg), F.init_state(cfg, dev)
+    for _ in range(3):
+        g = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+        tc = F.sketch_grads(g, lay, cfg)
+        tg = F.sketch_grads({k: x.to(dev) for k, x in g.items()}, lay, cfg)
+        torch.testing.assert_close(tg.cpu(), tc, rtol=1e-5, atol=1e-5)
+        dc, st_c = F.server_step(tc, st_c, 0.05, lay, cfg)
+        dg, st_g = F.server_step(tc.to(dev), st_g, 0.05, lay, cfg)
+        ic = np.sort(T.global_ids(dc, lay).numpy())
+        ig = np.sort(T.global_ids(dg, lay).cpu().numpy())
+        np.testing.assert_array_equal(ig, ic)
+        torch.testing.assert_close(st_g.error_sketch.cpu(), st_c.error_sketch,
+                                   rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(st_g.momentum_sketch.cpu(),
+                                   st_c.momentum_sketch, rtol=1e-6,
+                                   atol=1e-6)
