@@ -7,14 +7,18 @@ In order, it
 1. builds the four CUDA kernels (sm_90a) from the sources in this checkout;
 2. holds each kernel against its plain PyTorch twin on the card, at the
    shapes of the full-width main path (a 5 x 2**20 sketch, a 2**24-element
-   chunk at a 64-bit offset above 2**32, k = 25,000), and times both;
+   chunk at a 64-bit offset above 2**32, k = 25,000), and times both; the
+   encode on both of its paths (binned at 2**24, one-pass at 2**19 and at
+   the main path's largest one-pass chunk, which is timed apart), with a
+   chunk of 90% zeros, with overflowing bins, and with a table of
+   1,000,003 columns, which the estimate reads too;
 3. runs 2 rounds of the reduced model on the card and on the CPU from the
    same weights, and compares them (the port's own reference on a small
    input);
 4. runs 3 full-width FetchSGD rounds of gpt2s-federated through the driver
    (``python -m repro_torch.launch.train_lm --full --rounds 3``) from
    torch-initialised random weights, with every kernel's launch count set
-   to 0 just before and read just after;
+   to 0 just before and read just after (and the encode's calls by path);
 5. prints the kernels line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +47,8 @@ F32_OPS_PER_S = 67e12
 
 ROWS, COLS, K = 5, 1 << 20, 25_000       # the --full sketch
 CHUNK = 1 << 24                          # encode / estimate check chunk
+SMALL = 1 << 19                          # a chunk under the binned threshold
+ODD_COLS = 1_000_003                     # cols not a multiple of a bin
 OFFSET = (1 << 32) + 12_345              # a 64-bit offset above 2**32
 D_FULL = 162_148_608                     # gpt2s-federated parameters
 N_CHUNKS = 17                            # its layout's chunks (pinned in
@@ -90,6 +96,22 @@ def max_abs_err(torch, a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def largest_one_pass_chunk(torch, dev) -> int:
+    """Elements in the largest chunk of the full-width layout that the
+    encode takes one-pass (the stacked norm scales)."""
+    from repro_torch import configs
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.kernels import count_sketch as cuda_cs
+    from repro_torch.models import transformer
+
+    lay = layout_lib.build_layout(transformer.init_params(
+        configs.get_config("gpt2s-federated"), device=dev))
+    check(lay.num_chunks == N_CHUNKS, f"the full-width layout has "
+          f"{N_CHUNKS} chunks")
+    return max(c.size for c in lay.chunks
+               if not cuda_cs.bins().use(c.size, ROWS, COLS))
+
+
 def card_checks(torch, dev):
     """Every kernel against its plain twin at the main path's shapes."""
     from repro_torch.kernels import count_sketch as cuda_cs
@@ -101,6 +123,8 @@ def card_checks(torch, dev):
 
     # -- encode --------------------------------------------------------------
     print("encode: 2**24 values at offset 2**32 + 12345 into 5 x 2**20")
+    geo = cuda_cs.bins()
+    check(geo.use(CHUNK, ROWS, COLS), "a 2**24 chunk takes the binned path")
     ints = torch.randint(-8, 9, (CHUNK,), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.float32)
     got = cuda_cs.sketch_encode(ints, OFFSET, ROWS, COLS)
@@ -109,6 +133,22 @@ def card_checks(torch, dev):
     ints_bf16 = ints.to(torch.bfloat16)
     check(torch.equal(cuda_cs.sketch_encode(ints_bf16, OFFSET, ROWS, COLS),
                       got), "encode exact on integer-valued bf16")
+    sparse = ints * (torch.rand(CHUNK, generator=gen, device=dev) < 0.1)
+    check(torch.equal(cuda_cs.sketch_encode(sparse, OFFSET, ROWS, COLS),
+                      ref.sketch_encode(sparse, OFFSET, ROWS, COLS)),
+          "encode exact on a chunk of 90% zeros")
+    check(torch.equal(cuda_cs.sketch_encode(ints, OFFSET, ROWS, COLS,
+                                            _bin_capacity=4096), got),
+          "encode exact with bins of 4,096 records (most records overflow "
+          "into the table)")
+    small = ints[:SMALL]
+    check(not geo.use(SMALL, ROWS, COLS)
+          and torch.equal(cuda_cs.sketch_encode(small, OFFSET, ROWS, COLS),
+                          ref.sketch_encode(small, OFFSET, ROWS, COLS)),
+          f"encode of {SMALL} values takes the one-pass path, exact")
+    odd = cuda_cs.sketch_encode(ints, OFFSET, ROWS, ODD_COLS)
+    check(torch.equal(odd, ref.sketch_encode(ints, OFFSET, ROWS, ODD_COLS)),
+          f"encode exact into 5 x {ODD_COLS:,} (not a multiple of a bin)")
     reals = torch.randn(CHUNK, generator=gen, device=dev)
     got = cuda_cs.sketch_encode(reals, OFFSET, ROWS, COLS)
     want = ref.sketch_encode(reals, OFFSET, ROWS, COLS)
@@ -116,6 +156,11 @@ def card_checks(torch, dev):
     # ~16 normal values per cell summed in another order by the atomics
     check(torch.allclose(got, want, rtol=1e-5, atol=1e-4),
           f"encode allclose on reals (rtol 1e-5, atol 1e-4): max err {err:g}")
+    got_small = cuda_cs.sketch_encode(reals[:SMALL], OFFSET, ROWS, COLS)
+    want_small = ref.sketch_encode(reals[:SMALL], OFFSET, ROWS, COLS)
+    check(torch.allclose(got_small, want_small, rtol=1e-5, atol=1e-4),
+          "one-pass encode allclose on reals")
+    err = max(err, max_abs_err(torch, got_small, want_small))
     table = got
     scratch = torch.zeros_like(table)
     ms = time_ms(torch, lambda: cuda_cs.sketch_encode(
@@ -125,12 +170,36 @@ def card_checks(torch, dev):
     b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4, 2 * ROWS * CHUNK)
     rows["encode"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
                           bound_by=by)
+    # the one-pass kernel at the main path's largest one-pass chunk; its
+    # bound counts the cells it can touch, rows * min(n, cols), written once
+    n1 = largest_one_pass_chunk(torch, dev)
+    print(f"encode: {n1} values, the main path's largest one-pass chunk")
+    v1 = reals[:n1]
+    got, want = (cuda_cs.sketch_encode(v1, OFFSET, ROWS, COLS),
+                 ref.sketch_encode(v1, OFFSET, ROWS, COLS))
+    err1 = max_abs_err(torch, got, want)
+    check(not geo.use(n1, ROWS, COLS)
+          and torch.allclose(got, want, rtol=1e-5, atol=1e-4),
+          f"one-pass encode of {n1} values allclose: max err {err1:g}")
+    ms1 = time_ms(torch, lambda: cuda_cs.sketch_encode(
+        v1, OFFSET, ROWS, COLS, out=scratch), 50)
+    plain1 = time_ms(torch, lambda: ref.sketch_encode(
+        v1, OFFSET, ROWS, COLS, out=scratch), 10)
+    b, by = bound_ms(n1 * 4 + ROWS * min(n1, COLS) * 4, 2 * ROWS * n1)
+    rows["encode"]["one_pass"] = dict(n=n1, max_abs_err=err1, ms=ms1,
+                                      plain_ms=plain1, bound_ms=b,
+                                      bound_by=by)
 
     # -- estimate ------------------------------------------------------------
     print("estimate: 2**24 ids from the 5 x 2**20 table")
     got = cuda_cs.sketch_estimate(table, OFFSET, CHUNK)
     want = ref.sketch_estimate(table, OFFSET, CHUNK)
     check(torch.equal(got, want), "estimate exact")
+    err = max_abs_err(torch, got, want)
+    got = cuda_cs.sketch_estimate(odd, OFFSET + 3, CHUNK - 3)
+    want = ref.sketch_estimate(odd, OFFSET + 3, CHUNK - 3)
+    check(torch.equal(got, want),
+          f"estimate exact from 5 x {ODD_COLS:,}, 2**24 - 3 ids")
     ms = time_ms(torch, lambda: cuda_cs.sketch_estimate(table, OFFSET, CHUNK),
                  10)
     plain = time_ms(torch, lambda: ref.sketch_estimate(table, OFFSET, CHUNK),
@@ -138,8 +207,9 @@ def card_checks(torch, dev):
     comparators = sum(len(range(p & 1, ROWS - 1, 2)) for p in range(ROWS))
     b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4,
                      CHUNK * (ROWS + 2 + 2 * comparators))
-    rows["estimate"] = dict(max_abs_err=max_abs_err(torch, got, want), ms=ms,
-                            plain_ms=plain, bound_ms=b, bound_by=by)
+    rows["estimate"] = dict(max_abs_err=max(err, max_abs_err(torch, got,
+                                                             want)),
+                            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
 
     # -- momentum_error ------------------------------------------------------
     print("momentum_error: three 5 x 2**20 tables")
@@ -243,13 +313,16 @@ def small_reference_run(torch, dev):
 
 def main_path():
     """3 full-width rounds through the driver, counting kernel launches."""
+    from repro_torch.kernels import count_sketch as cuda_cs
     from repro_torch.kernels import ops
     from repro_torch.launch import train_lm
 
     ops.reset_launch_counts()
     records, _ = train_lm.main(["--full", "--rounds", "3"], log=print)
     counts = ops.launch_counts()
-    print(f"launches on the main path: {counts}")
+    paths = dict(cuda_cs.PATHS)
+    print(f"launches on the main path: {counts}; encode calls by path: "
+          f"{paths}")
     rounds, clients, n_chunks = len(records), 4, N_CHUNKS
     check(counts == {"encode": rounds * clients * n_chunks,
                      "estimate": rounds * n_chunks,
@@ -257,11 +330,13 @@ def main_path():
           f"every kernel launched: {n_chunks} chunks x {clients} clients "
           f"x {rounds} rounds encodes, {n_chunks} estimates, 1 momentum_error "
           f"and 1 topk_mask a round")
+    check(min(paths.values()) > 0 and sum(paths.values()) == counts["encode"],
+          "the encode took both of its paths")
     for r in records:
         check(math.isfinite(r.loss), f"round {r.round} loss {r.loss} finite")
         check(r.delta_size == K and r.delta_unique == K,
               f"round {r.round} Delta has exactly {K} distinct entries")
-    return records, counts
+    return records, counts, paths
 
 
 def main() -> int:
@@ -291,7 +366,8 @@ def main() -> int:
     print("reduced model, card vs CPU:")
     small_reference_run(torch, dev)
     print("main path: train_lm --full --rounds 3")
-    records, counts = main_path()
+    records, counts, paths = main_path()
+    kernels["encode"]["one_pass"]["launches"] = paths["one_pass"]
     for r in records:
         print(f"round {r.round}: loss {r.loss:.6f}  {r.seconds:.3f} s/round")
 
@@ -311,7 +387,8 @@ def main() -> int:
          "ms": kernels[k]["ms"], "kernel_ms": kernels[k]["ms"],
          "plain_ms": kernels[k]["plain_ms"],
          "bound_ms": kernels[k]["bound_ms"],
-         "bound_by": kernels[k]["bound_by"], "library_ms": None}
+         "bound_by": kernels[k]["bound_by"], "library_ms": None,
+         **({"one_pass": kernels[k]["one_pass"]} if k == "encode" else {})}
         for k, (src, rep) in meta.items()]}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,11 +32,14 @@ _LL = ctypes.c_longlong
 _ULL = ctypes.c_ulonglong
 _SEEDS = ctypes.POINTER(ctypes.c_uint32)
 _SIGNATURES = {
-    "fs_encode": [_P, _I, _LL, _ULL, _P, _I, _I, _SEEDS, _SEEDS, _P],
-    "fs_estimate": [_P, _I, _I, _ULL, _LL, _P, _SEEDS, _SEEDS, _P],
+    "fs_encode": [_P, _I, _LL, _ULL, _P, _I, _I, _SEEDS, _SEEDS, _ULL, _P,
+                  _P, _P, _LL, _P],
+    "fs_estimate": [_P, _I, _I, _ULL, _LL, _P, _SEEDS, _SEEDS, _ULL, _P],
     "fs_momentum_error": [_P, _P, _P, _P, ctypes.c_float, _P, _P, _LL, _P],
-    "fs_topk_mask": [_P, _P, _LL, _P, _P, _I, _I, _SEEDS, _SEEDS, _I, _I,
-                     _P],
+    "fs_topk_mask": [_P, _P, _LL, _P, _P, _I, _I, _SEEDS, _SEEDS, _ULL, _I,
+                     _I, _P],
+    "fs_encode_bin_cols": [],
+    "fs_encode_max_bins": [],
 }
 
 

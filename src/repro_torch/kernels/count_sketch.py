@@ -3,11 +3,17 @@
 ``csrc/encode.cu`` replaces ``repro/kernels/count_sketch.py::_encode_kernel``
 and ``csrc/estimate.cu`` replaces ``::_estimate_kernel``.  The wrappers take
 CUDA tensors only: they check device, dtype, shape and contiguity, allocate
-what the kernel writes, launch on PyTorch's current stream and raise if the
-launch failed.  ``LAUNCHES`` counts the launches of each kernel.
+what the kernel writes (and the encode's scratch), launch on PyTorch's
+current stream and raise if the launch failed.  ``LAUNCHES`` counts the
+calls that launched each kernel: one an encode call, whether it took the
+one-pass kernel or the binned pair (``PATHS`` splits them).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 
@@ -16,6 +22,9 @@ from repro_torch.core import hashing
 from . import build
 
 LAUNCHES = {"encode": 0, "estimate": 0}
+
+# encode calls by the path they took (both count in LAUNCHES["encode"])
+PATHS = {"one_pass": 0, "binned": 0}
 
 
 def check_cuda(*tensors: torch.Tensor) -> torch.device:
@@ -42,16 +51,72 @@ def row_seeds(rows: int, key: int):
             build.seeds(hashing.sign_seed(j, key) for j in range(rows)))
 
 
+def fastmod_multiplier(cols: int) -> int:
+    """Lemire's fastmod constant for ``cols``: ``h % cols`` equals
+    ``((m * h mod 2**64) * cols) >> 64`` for every 32-bit ``h`` (the
+    kernels' bucket, ``hash.cuh``).  Plain integers: torch has no uint64
+    arithmetic on the CPU."""
+    if not 1 <= cols < 1 << 31:
+        raise ValueError(f"cols must be in 1..2**31-1, got {cols}")
+    return (((1 << 64) - 1) // cols + 1) % (1 << 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bins:
+    """The binned encode's geometry: ``cols`` columns a bin, at most
+    ``max_bins`` bins a table.  :func:`bins` gives the values that
+    ``csrc/encode.cu`` compiles in."""
+
+    cols: int
+    max_bins: int
+
+    def per_row(self, cols: int) -> int:
+        return -(-cols // self.cols)
+
+    def capacity(self, n: int, cols: int) -> int:
+        """Records each bin holds for an n-element chunk: the expected
+        count of a full bin, n * min(cols, self.cols) / cols, plus 8
+        standard deviations and 64, in multiples of 8; never more than n
+        rounded up, which no bin can exceed.  A record that finds its bin
+        full is still added (by a global atomic), so this only sizes the
+        scratch."""
+        mean = n * min(cols, self.cols) / cols
+        cap = min(math.ceil(mean + 8 * math.sqrt(mean) + 64), n)
+        return -(-cap // 8) * 8
+
+    def use(self, n: int, rows: int, cols: int) -> bool:
+        """Whether an n-element chunk takes the binned path.  It pays a
+        fixed cost (its accumulate kernel visits every bin of the table)
+        and saves on every record against the one-pass atomics; on the
+        H100 it wins from about two elements per column of the table on
+        (``python -m repro_torch.launch.probe_sketch_bounds`` times both
+        paths by chunk length).  Tables of more than ``max_bins`` bins,
+        and chunks of 2**31 elements or more, take the one-pass kernel."""
+        return (n >= 2 * cols and rows * self.per_row(cols) <= self.max_bins
+                and n < 1 << 31)
+
+
+@functools.cache
+def bins() -> Bins:
+    lib = build.library()
+    return Bins(lib.fs_encode_bin_cols(), lib.fs_encode_max_bins())
+
+
 def _check_ids(offset: int, n: int) -> None:
     if offset < 0 or offset + n > 1 << 64:
         raise ValueError(f"ids {offset}..{offset + n} are not 64-bit")
 
 
 def sketch_encode(values: torch.Tensor, offset: int, rows: int, cols: int,
-                  key: int = 0, *, out: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+                  key: int = 0, *, out: torch.Tensor | None = None,
+                  _bin_capacity: int | None = None) -> torch.Tensor:
     """Add the sketch of the 1-D chunk ``values`` (global ids from
-    ``offset``) into ``out`` (a new zero table if None) and return it."""
+    ``offset``) into ``out`` (a new zero table if None) and return it.
+
+    ``_bin_capacity`` is for the card tests only: 0 takes the one-pass
+    kernel, a positive multiple of 8 the binned one with that many records
+    a bin (a small one forces its overflow path); None lets ``Bins.use``
+    and ``Bins.capacity`` choose."""
     if values.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"encode takes float32 or bfloat16, got "
                          f"{values.dtype}")
@@ -65,14 +130,29 @@ def sketch_encode(values: torch.Tensor, offset: int, rows: int, cols: int,
     if n == 0:
         return out
     bseeds, sseeds = row_seeds(rows, key)
+    m = fastmod_multiplier(cols)
+    geo = bins()
+    if _bin_capacity is None:
+        cap = geo.capacity(n, cols) if geo.use(n, rows, cols) else 0
+    else:
+        cap = _bin_capacity
+    rec_val = rec_col = cursor = None
+    if cap:
+        nbins = rows * geo.per_row(cols)
+        rec_val = torch.empty(nbins * cap, dtype=torch.float32, device=dev)
+        rec_col = torch.empty(nbins * cap, dtype=torch.int16, device=dev)
+        cursor = torch.empty(nbins, dtype=torch.int32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         rc = lib.fs_encode(values.data_ptr(),
                            int(values.dtype == torch.bfloat16), n, offset,
-                           out.data_ptr(), rows, cols, bseeds, sseeds,
-                           torch.cuda.current_stream().cuda_stream)
+                           out.data_ptr(), rows, cols, bseeds, sseeds, m,
+                           *(t if t is None else t.data_ptr()
+                             for t in (rec_val, rec_col, cursor)),
+                           cap, torch.cuda.current_stream().cuda_stream)
     build.check(rc, "encode")
     LAUNCHES["encode"] += 1
+    PATHS["binned" if cap else "one_pass"] += 1
     return out
 
 
@@ -91,6 +171,7 @@ def sketch_estimate(table: torch.Tensor, offset: int, n: int,
     with torch.cuda.device(dev):
         rc = lib.fs_estimate(table.data_ptr(), rows, cols, offset, n,
                              out.data_ptr(), bseeds, sseeds,
+                             fastmod_multiplier(cols),
                              torch.cuda.current_stream().cuda_stream)
     build.check(rc, "estimate")
     LAUNCHES["estimate"] += 1

@@ -10,19 +10,30 @@
 //
 // The TPU kernel gathered through a one-hot MXU contraction.  Here each
 // thread hashes its id, gathers one cell per row from the table (21 MB on
-// the main path, resident in L2) and sorts the <= 10 values in registers
-// with an odd-even transposition network unrolled on the row count.
+// the main path, resident in the 50 MB L2) and sorts the <= 10 values in
+// registers with an odd-even transposition network unrolled on the row
+// count; jnp.median's midpoint and NaN rules make it equal its plain twin
+// bit for bit.
 //
-// Bound on the H100: the estimates written once (4 B per id) plus the table
-// read once, at 3.35 TB/s; the gathers are random 4 B reads from L2.
+// What bounds it on the H100: the random 4-byte reads, rows per id.  The
+// byte bound (the estimates written once plus the table read once) is out
+// of reach: this kernel with the bucket taken by `%` took 0.64 ms for 2^24
+// ids from the 5 x 2^20 table with or without its hashing, and 0.60 ms
+// from a table 16x smaller, about 131 G random reads a second
+// (python -m repro_torch.launch.probe_sketch_bounds).  Taking the bucket
+// by fastmod (hash.cuh) or reading through ld.global.cg does not move it
+// (the same probe), and several ids a thread with all their gathers in
+// flight gained no more than the spread between runs, so the kernel stays
+// one id a thread.
 #include "hash.cuh"
 
 namespace {
 
 template <int R>
 __global__ void estimate_kernel(const float* __restrict__ table, uint32_t cols,
-                                unsigned long long base, long long n,
-                                float* __restrict__ out, fs::RowSeeds seeds) {
+                                uint64_t m, unsigned long long base,
+                                long long n, float* __restrict__ out,
+                                fs::RowSeeds seeds) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -34,9 +45,9 @@ __global__ void estimate_kernel(const float* __restrict__ table, uint32_t cols,
     bool any_nan = false;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const uint32_t b = fs::bucket(lo, hi, seeds.bucket[j], cols);
+      const uint32_t b = fs::bucket(lo, hi, seeds.bucket[j], cols, m);
       v[j] = fs::sign(lo, hi, seeds.sign[j]) *
-             __ldg(table + static_cast<size_t>(j) * cols + b);
+             __ldcg(table + static_cast<size_t>(j) * cols + b);
       any_nan |= (v[j] != v[j]);
     }
 #pragma unroll
@@ -59,7 +70,8 @@ __global__ void estimate_kernel(const float* __restrict__ table, uint32_t cols,
 extern "C" int fs_estimate(const float* table, int rows, int cols,
                            unsigned long long base, long long n, float* out,
                            const uint32_t* bucket_seeds,
-                           const uint32_t* sign_seeds, void* stream) {
+                           const uint32_t* sign_seeds,
+                           unsigned long long fastmod_m, void* stream) {
   if (rows < 1 || rows > fs::kMaxRows || cols < 1 || n < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -70,7 +82,7 @@ extern "C" int fs_estimate(const float* table, int rows, int cols,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   FS_DISPATCH_ROWS(rows, R,
                    estimate_kernel<R><<<grid, kThreads, 0, s>>>(
-                       table, static_cast<uint32_t>(cols), base, n, out,
-                       seeds))
+                       table, static_cast<uint32_t>(cols), fastmod_m, base,
+                       n, out, seeds))
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,9 +43,27 @@ __device__ __forceinline__ uint32_t hash64(uint32_t lo, uint32_t hi,
   return fmix32(h ^ hi ^ (seed * 0x9E3779B9u + 1u));
 }
 
+// h % d without a division (Lemire's fastmod for 32-bit operands), exact
+// for every 32-bit h and every d in 1..2^31-1.  The host computes
+// m = floor((2^64 - 1) / d) + 1 (mod 2^64; 0 for d = 1, which gives 0);
+// count_sketch.fastmod_multiplier in the wrappers.  The product
+// (m * h mod 2^64) * d >> 64 is __umul64hi(m * h, d), written out for a
+// 32-bit d: two wide multiplies instead of a 64 x 64 high product.
+__device__ __forceinline__ uint32_t fastmod(uint32_t h, uint64_t m,
+                                            uint32_t d) {
+  const uint64_t low = m * h;
+  const uint64_t mid = static_cast<uint64_t>(static_cast<uint32_t>(
+                           low >> 32)) * d +
+                       __umulhi(static_cast<uint32_t>(low), d);
+  return static_cast<uint32_t>(mid >> 32);
+}
+
+// The column of an id in one row: hash64 % cols, taken by fastmod with
+// m = fastmod_multiplier(cols).
 __device__ __forceinline__ uint32_t bucket(uint32_t lo, uint32_t hi,
-                                           uint32_t seed, uint32_t cols) {
-  return hash64(lo, hi, seed) % cols;
+                                           uint32_t seed, uint32_t cols,
+                                           uint64_t m) {
+  return fastmod(hash64(lo, hi, seed), m, cols);
 }
 
 __device__ __forceinline__ float sign(uint32_t lo, uint32_t hi,

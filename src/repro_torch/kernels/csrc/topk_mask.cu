@@ -28,7 +28,7 @@ __global__ void topk_mask_kernel(const long long* __restrict__ ids,
                                  const float* __restrict__ values,
                                  long long k, float* __restrict__ su,
                                  float* __restrict__ se, uint32_t cols,
-                                 fs::RowSeeds seeds, int subtract,
+                                 uint64_t m, fs::RowSeeds seeds, int subtract,
                                  int mask_momentum) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -41,7 +41,7 @@ __global__ void topk_mask_kernel(const long long* __restrict__ ids,
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       const size_t cell = static_cast<size_t>(j) * cols +
-                          fs::bucket(lo, hi, seeds.bucket[j], cols);
+                          fs::bucket(lo, hi, seeds.bucket[j], cols, m);
       if (subtract) {
         atomicAdd(se + cell, -(fs::sign(lo, hi, seeds.sign[j]) * v));
       } else {
@@ -57,7 +57,8 @@ __global__ void topk_mask_kernel(const long long* __restrict__ ids,
 extern "C" int fs_topk_mask(const long long* ids, const float* values,
                             long long k, float* su, float* se, int rows,
                             int cols, const uint32_t* bucket_seeds,
-                            const uint32_t* sign_seeds, int subtract,
+                            const uint32_t* sign_seeds,
+                            unsigned long long fastmod_m, int subtract,
                             int mask_momentum, void* stream) {
   if (rows < 1 || rows > fs::kMaxRows || cols < 1 || k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -70,6 +71,6 @@ extern "C" int fs_topk_mask(const long long* ids, const float* values,
   FS_DISPATCH_ROWS(rows, R,
                    topk_mask_kernel<R><<<grid, kThreads, 0, s>>>(
                        ids, values, k, su, se, static_cast<uint32_t>(cols),
-                       seeds, subtract, mask_momentum))
+                       fastmod_m, seeds, subtract, mask_momentum))
   return static_cast<int>(cudaGetLastError());
 }

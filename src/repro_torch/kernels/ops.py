@@ -60,6 +60,6 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for counts in (cuda_cs.LAUNCHES, cuda_ss.LAUNCHES):
+    for counts in (cuda_cs.LAUNCHES, cuda_cs.PATHS, cuda_ss.LAUNCHES):
         for name in counts:
             counts[name] = 0

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .count_sketch import check_cuda, check_table, row_seeds
+from .count_sketch import (check_cuda, check_table, fastmod_multiplier,
+                           row_seeds)
 
 LAUNCHES = {"momentum_error": 0, "topk_mask": 0}
 
@@ -75,7 +76,8 @@ def topk_mask(su: torch.Tensor, se: torch.Tensor, ids: torch.Tensor,
         rc = lib.fs_topk_mask(
             ids.data_ptr(), values.data_ptr(), k, su.data_ptr(),
             se.data_ptr(), rows, cols, bseeds, sseeds,
-            int(error_mode == "subtract"), int(momentum_masking),
+            fastmod_multiplier(cols), int(error_mode == "subtract"),
+            int(momentum_masking),
             torch.cuda.current_stream().cuda_stream)
     build.check(rc, "topk_mask")
     LAUNCHES["topk_mask"] += 1

@@ -10,6 +10,12 @@ each phase's seconds per round (median over the timed rounds after the
 first), the device time by kernel, and the share of the profiled round's
 wall time in which the device ran a kernel or a copy.  The profiler's full
 table goes to ``--out``.
+
+It also splits the server's top-k (``core/topk.topk_from_sketch``) on the
+final error sketch with CUDA events: the per-chunk estimate kernels, the
+per-chunk ``torch.topk`` calls (with the ``abs`` they take) and the final
+top-k over the candidate pool, each group timed on its own behind a queued
+device sleep, the median of 5 repetitions.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ import torch
 from repro_torch import configs, resolve_device
 from repro_torch.core import fetchsgd as F
 from repro_torch.core import layout as layout_lib
+from repro_torch.core import topk as topk_lib
 from repro_torch.data import federated, synthetic
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.train_lm import sync, to_batch
 from repro_torch.models import transformer
 from repro_torch.optim import linear_decay
@@ -61,6 +69,51 @@ def run_round(r, state, ctx, times):
     return state
 
 
+def device_ms(fn, reps: int = 5) -> float:
+    """Median device time of ``fn()`` (CUDA events), each repetition
+    behind a queued device sleep so that the host is ahead of the card."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)   # clock cycles: ~50 ms at ~2 GHz
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_topk(table, lay, k: int, key: int = 0) -> dict[str, float]:
+    """Device ms of the three parts of ``topk_from_sketch`` on ``table``:
+    the estimates, the per-chunk top-k and the final top-k over the pool
+    (the same calls, in the same order, as ``core/topk.py``)."""
+    nall = lay.num_chunks
+    work = []                            # (offset, size, per-chunk k)
+    for g in lay.groups:
+        size = g.n_rows * g.row_len
+        kk = topk_lib._chunk_k(k, size, nall)
+        work += [(lay.chunks[ci].offset, size, kk) for ci in g.chunk_ids]
+    ests = [kernel_ops.sketch_estimate(table, off, size, key)
+            for off, size, _ in work]
+    idxs = [torch.topk(e.abs(), kk).indices for e, (_, _, kk)
+            in zip(ests, work)]
+    pool = torch.cat([e[i] for e, i in zip(ests, idxs)])
+    return {
+        "estimate": device_ms(lambda: [
+            kernel_ops.sketch_estimate(table, off, size, key)
+            for off, size, _ in work]),
+        "chunk_topk": device_ms(lambda: [
+            torch.topk(e.abs(), kk).indices
+            for e, (_, _, kk) in zip(ests, work)]),
+        "final_topk": device_ms(lambda: torch.topk(
+            pool.abs(), min(k, pool.numel())).indices),
+        "chunks": len(work),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -90,6 +143,11 @@ def main(argv=None):
         print(f"  {name:12s} {statistics.median(t[name] for t in steady):.6f}")
     print(f"  {'round':12s} "
           f"{statistics.median(sum(t.values()) for t in steady):.6f}")
+    parts = time_topk(state.error_sketch, lay, fs_cfg.k, fs_cfg.hash_key)
+    print(f"server top-k on the error sketch, device ms ({parts['chunks']} "
+          f"chunks, median of 5):")
+    for name in ("estimate", "chunk_topk", "final_topk"):
+        print(f"  {name:12s} {parts[name]:.6f}")
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]

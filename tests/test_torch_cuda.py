@@ -10,6 +10,10 @@ atomics' order of summation cannot show and those comparisons are exact;
 the estimate, momentum/error and zeroing kernels round like their twins
 and are compared exactly; real-valued encodes, whose atomics sum in
 another order, use rtol=1e-5, atol=1e-4.
+
+The encode has two paths (one-pass atomics, and the binned partition +
+accumulate pair); ``_bin_capacity`` forces either, and a small capacity
+forces the binned path's overflow into the table.
 """
 
 import numpy as np
@@ -26,8 +30,13 @@ from repro_torch.kernels import server_step as cuda_ss
 pytestmark = pytest.mark.cuda
 
 TABLES = [(2, 384), (9, 640), (4, 1920), (3, 130), (4, 300), (5, 1000),
-          (10, 1 << 16)]
+          (10, 1 << 16), (1, 7), (5, 1_000_003)]
 OFFSETS = [0, 2**31 - 5, 2**32 - 3, 2**41 + 99]
+# cols under one bin (7, 130), not a multiple of the bin width
+# (1,000,003), 1 and 10 rows, and the main path's table
+PATH_TABLES = [(1, 7), (3, 130), (5, 1_000_003), (10, 1 << 16),
+               (10, 1 << 20), (5, 1 << 20)]
+LENGTHS = [1, 3, 2**20 + 5]
 
 
 @pytest.fixture
@@ -60,6 +69,92 @@ def test_encode_matches_plain(dev, rows, cols, offset):
     assert cuda_cs.sketch_encode(v.to(torch.bfloat16), offset, rows, cols, 3,
                                  out=out) is out
     torch.testing.assert_close(out, got + 1, rtol=0, atol=0)
+
+
+def test_bin_geometry_comes_from_the_library(dev):
+    """The wrapper sizes the binned encode's scratch by the geometry that
+    encode.cu compiles in: 16-bit columns within a bin, and room for the
+    main path's 5 x 2**20 table."""
+    geo = cuda_cs.bins()
+    assert geo.cols & (geo.cols - 1) == 0 and geo.cols <= 1 << 16
+    assert 5 * geo.per_row(1 << 20) <= geo.max_bins
+    assert geo.use(1 << 24, 5, 1 << 20)
+
+
+def capacity(path, n, cols):
+    return {"auto": None, "one_pass": 0,
+            "binned": cuda_cs.bins().capacity(n, cols)}[path]
+
+
+@pytest.mark.parametrize("rows,cols", PATH_TABLES)
+@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("path", ["auto", "one_pass", "binned"])
+def test_encode_paths_match_plain(dev, rows, cols, n, path):
+    """Both encode paths: exact on integers (dense, 90% zeros as in the
+    embedding chunks, and bf16), allclose on reals."""
+    gen = torch.Generator().manual_seed(n * 31 + cols)
+    cap = capacity(path, n, cols)
+    v = ints(gen, (n,), dev)
+    sparse = v * (torch.rand(n, generator=gen) < 0.1).float().to(dev)
+    for x in (v, sparse, v.to(torch.bfloat16)):
+        got = cuda_cs.sketch_encode(x, 2**32 + 7, rows, cols, 1,
+                                    _bin_capacity=cap)
+        torch.testing.assert_close(
+            got, ref.sketch_encode(x, 2**32 + 7, rows, cols, 1), rtol=0,
+            atol=0)
+    # reals at most 16 to a cell, as on the main path (2**24 values into
+    # 2**20 columns): the error of another order of summation grows with
+    # the count per cell, and 150,000 normals in one cell exceed rtol 1e-5
+    # whatever the kernel
+    nr = min(n, 16 * cols)
+    r = torch.randn(nr, generator=gen).to(dev)
+    cap_r = None if cap is None else capacity(path, nr, cols)
+    torch.testing.assert_close(
+        cuda_cs.sketch_encode(r, 99, rows, cols, _bin_capacity=cap_r),
+        ref.sketch_encode(r, 99, rows, cols), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,cols", [(5, 1 << 20), (3, 130),
+                                       (5, 1_000_003)])
+@pytest.mark.parametrize("cap", [8, 4096])
+def test_encode_bin_overflow_matches_plain(dev, rows, cols, cap):
+    """Bins far below their expected count: most records take the
+    overflow atomics into the table, the rest the bins."""
+    n = 2**20 + 5
+    assert cap < cuda_cs.bins().capacity(n, cols) // 2
+    gen = torch.Generator().manual_seed(cap + cols)
+    v = ints(gen, (n,), dev)
+    out = ints(gen, (rows, cols), dev, 3)
+    want = ref.sketch_encode(v, 2**33, rows, cols, out=out.clone())
+    got = cuda_cs.sketch_encode(v, 2**33, rows, cols, out=out,
+                                _bin_capacity=cap)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    r = torch.randn(min(n, 16 * cols), generator=gen).to(dev)
+    torch.testing.assert_close(
+        cuda_cs.sketch_encode(r, 5, rows, cols, _bin_capacity=cap),
+        ref.sketch_encode(r, 5, rows, cols), rtol=1e-5, atol=1e-4)
+
+
+def test_encode_unaligned_values_match_plain(dev):
+    """A chunk that starts off a 16-byte boundary takes the scalar loads."""
+    gen = torch.Generator().manual_seed(3)
+    v = ints(gen, (2**20 + 9,), dev)[1:]
+    assert v.data_ptr() % 16 != 0
+    for x in (v, v.to(torch.bfloat16)[1:]):
+        torch.testing.assert_close(
+            cuda_cs.sketch_encode(x, 11, 5, 4096),
+            ref.sketch_encode(x, 11, 5, 4096), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rows,cols", PATH_TABLES)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_estimate_lengths_match_plain(dev, rows, cols, n):
+    gen = torch.Generator().manual_seed(rows * cols + n)
+    table = torch.randn(rows, cols, generator=gen).to(dev)
+    table[-1, :3] = float("nan")
+    got = cuda_cs.sketch_estimate(table, 2**32 + 1, n, 4)
+    want = ref.sketch_estimate(table, 2**32 + 1, n, 4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("rows,cols", TABLES)
@@ -160,3 +255,15 @@ def test_server_rounds_on_the_card_match_the_cpu(dev, error_mode):
         torch.testing.assert_close(st_g.momentum_sketch.cpu(),
                                    st_c.momentum_sketch, rtol=1e-6,
                                    atol=1e-6)
+
+
+def test_profile_round_times_the_three_parts_of_the_server_topk(dev):
+    from repro_torch.launch import profile_round
+    shapes = {"a": (64, 32), "b": (100,)}
+    lay = L.build_layout({k: torch.zeros(s) for k, s in shapes.items()},
+                         chunk_elems=500)
+    table = torch.randn(5, 1000, device=dev)
+    parts = profile_round.time_topk(table, lay, 20)
+    assert parts["chunks"] == lay.num_chunks
+    assert all(parts[k] > 0 for k in ("estimate", "chunk_topk",
+                                      "final_topk"))

@@ -152,3 +152,47 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_dispatch_rejects_other_devices():
     with pytest.raises(ValueError, match="no sketch kernel"):
         ops.sketch_estimate(torch.zeros(3, 128, device="meta"), 0, 10)
+
+
+# the geometry encode.cu compiles in (a card test reads it from the library)
+BINS = cuda_cs.Bins(cols=1 << 15, max_bins=1024)
+
+
+@pytest.mark.parametrize("n,cols", [(1, 7), (3, 130), (2**20 + 5, 7),
+                                    (2**20 + 5, 1_000_003), (2**24, 2**20),
+                                    (5000, 2**16)])
+def test_bin_capacity_covers_the_expected_count(n, cols):
+    """The binned encode's scratch: a multiple of 8 records a bin, at
+    least 8 standard deviations over a full bin's expected count (or the
+    whole chunk, which no bin can exceed), never more than the chunk."""
+    cap = BINS.capacity(n, cols)
+    mean = n * min(cols, BINS.cols) / cols
+    assert cap % 8 == 0 and cap >= 8
+    assert cap >= min(n, mean + 8 * mean**0.5)
+    assert cap < n + 8
+
+
+def test_encode_path_choice():
+    """Binned from two elements per column of the table on; never for a
+    table of more than max_bins bins or a chunk of 2**31 elements."""
+    assert BINS.per_row(2**20) == 32
+    assert BINS.per_row(1_000_003) == 31
+    assert BINS.per_row(7) == 1
+    assert BINS.use(2**24, 5, 2**20)
+    assert BINS.use(2**21, 10, 2**20)
+    assert not BINS.use(2**21 - 1, 5, 2**20)
+    assert not BINS.use(9216, 5, 2**20)
+    assert not BINS.use(2**24, 5, 2**25)
+    assert not BINS.use(2**31, 5, 2**20)
+
+
+def test_probe_sketch_bounds_needs_cuda(capsys, tmp_path):
+    """The probe builds and times kernels on the card only: without CUDA
+    it says so and exits 2, building nothing."""
+    from repro_torch.launch import probe_sketch_bounds
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the probe would run")
+    out = tmp_path / "probe.json"
+    assert probe_sketch_bounds.main(["--out", str(out)]) == 2
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not out.exists()
