@@ -19,7 +19,12 @@ In order, it
    (``python -m repro_torch.launch.train_lm --full --rounds 3``) from
    torch-initialised random weights, with every kernel's launch count set
    to 0 just before and read just after (and the encode's calls by path);
-5. prints the kernels line, the card's name and power limit, and last
+5. runs the federated simulation at full width through
+   ``repro_torch.launch.simulate.run_simulation``: FetchSGD through the
+   round-clock orchestrator (flat with dropout, async with late merges,
+   tree) and each of the paper's baselines, checking losses, fates,
+   traffic and the kernels' launches, and timing every round;
+6. prints the kernels line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -339,6 +344,112 @@ def main_path():
     return records, counts, paths
 
 
+def fedsim_phase(torch, dev, smi_line: str) -> list[dict]:
+    """The federated simulation at full width (gpt2s-federated, PersonaLM
+    clients at seq 256, a 5 x 2**20 sketch, k = 25,000): FetchSGD through
+    the orchestrator under each aggregation policy, then every baseline.
+    Kernel launches are counted per FetchSGD run (set to 0 just before,
+    read just after); every round is timed on the host clock, ended by a
+    device sync."""
+    from repro_torch import configs, fed
+    from repro_torch.baselines import fedavg, local_topk
+    from repro_torch.core import compression
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    cfg = configs.get_config("gpt2s-federated")
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
+                                  n_clients=24)
+    down = compression.fetchsgd_round(ROWS, COLS, K).download
+    SM = fed.StragglerModel
+    runs = [
+        ("fetchsgd", "flat", 3, 8, dict(straggler=SM(dropout_prob=0.25))),
+        ("fetchsgd", "async", 3, 8, dict(straggler=SM(straggle_prob=0.25,
+                                                      max_delay=1))),
+        ("fetchsgd", "tree", 2, 8, dict(tree_fanout=2)),
+        ("true_topk", None, 2, 4, {}), ("local_topk", None, 2, 4, {}),
+        ("fedavg", None, 2, 4, {}), ("uncompressed", None, 2, 4, {})]
+    print(f"fedsim on {smi_line}")
+    out = []
+    for method, policy, rounds, cpr, fkw in runs:
+        name = method + (f"/{policy}" if policy else "")
+        seconds: list[float] = []
+        clock = [time.perf_counter()]
+
+        def progress(r, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seconds.append(now - clock[0])
+            clock[0] = now
+
+        fed_cfg = (fed.FederationConfig(rounds=rounds, clients_per_round=cpr,
+                                        aggregate=policy, **fkw)
+                   if policy else None)
+        ops.reset_launch_counts()
+        res = simulate.run_simulation(
+            cfg, method=method, rounds=rounds, clients_per_round=cpr,
+            fs_cfg=fs_cfg, topk_cfg=local_topk.LocalTopKConfig(k=K),
+            fa_cfg=fedavg.FedAvgConfig(local_epochs=2), dataset=dataset,
+            fed_cfg=fed_cfg, device=dev, progress=progress)
+        counts = ops.launch_counts()
+        print(f"{name}: losses {res.losses}; s/round {seconds} "
+              f"({smi_line})")
+        check(all(math.isfinite(x) for x in res.losses),
+              f"{name}: every loss finite")
+        meter = compression.TrafficMeter(d=D_FULL)
+        if method == "fetchsgd":
+            recs = res.extras["fed_records"]
+            for rec in recs:
+                check(rec.n_fresh + rec.n_dropped + rec.n_straggling
+                      == len(rec.cohort),
+                      f"{name} round {rec.round_idx}: fresh {rec.n_fresh} + "
+                      f"dropped {rec.n_dropped} + straggling "
+                      f"{rec.n_straggling} = cohort {len(rec.cohort)}")
+                meter.record(compression.RoundTraffic(
+                    upload=rec.upload_bytes,
+                    download=down * (rec.n_fresh + rec.n_straggling)), 1)
+            computed = sum(r.n_fresh + r.n_straggling for r in recs)
+            updates = sum(r.n_fresh + r.n_late > 0 for r in recs)
+            want = {"encode": N_CHUNKS * computed,
+                    "estimate": N_CHUNKS * updates,
+                    "momentum_error": updates, "topk_mask": updates}
+            print(f"{name}: launches {counts}")
+            check(counts == want,
+                  f"{name}: {N_CHUNKS} encodes for each of the {computed} "
+                  f"clients that computed; {N_CHUNKS} estimates, 1 "
+                  f"momentum_error and 1 topk_mask for each of the "
+                  f"{updates} server updates")
+            if policy == "async":
+                late = sum(r.n_late for r in recs)
+                check(late > 0, f"{name}: {late} late tables merged with "
+                      f"their discount")
+        else:
+            check(not any(counts.values()),
+                  f"{name}: no sketch kernel launched")
+            per = {"true_topk": compression.RoundTraffic(D_FULL * 4, K * 8),
+                   "fedavg": compression.fedavg_round(D_FULL),
+                   "uncompressed": compression.uncompressed_round(D_FULL)}
+            for _ in range(rounds):
+                if method in per:
+                    meter.record(per[method], cpr)
+        if method == "local_topk":
+            # the download is the union of the uploaded supports, which only
+            # the run knows; the upload is k values a client
+            check(res.traffic["upload_bytes"] == K * 4 * cpr * rounds,
+                  f"{name}: upload = k values a client a round")
+        else:
+            check(res.traffic == meter.compression(cpr),
+                  f"{name}: traffic = core/compression's reckoning for the "
+                  f"same participation")
+        out.append(dict(run=name, rounds=rounds, clients_per_round=cpr,
+                        losses=res.losses, seconds=seconds,
+                        launches=counts, traffic=res.traffic))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -370,6 +481,14 @@ def main() -> int:
     kernels["encode"]["one_pass"]["launches"] = paths["one_pass"]
     for r in records:
         print(f"round {r.round}: loss {r.loss:.6f}  {r.seconds:.3f} s/round")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print("fedsim: the federated simulation at full width")
+    fedsim = fedsim_phase(torch, dev, smi)
+    (OUT / "chip_smoke_fedsim.json").write_text(json.dumps(
+        {"device": smi, "runs": fedsim}, indent=1))
 
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",
@@ -390,11 +509,8 @@ def main() -> int:
          "bound_by": kernels[k]["bound_by"], "library_ms": None,
          **({"one_pass": kernels[k]["one_pass"]} if k == "encode" else {})}
         for k, (src, rep) in meta.items()]}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(json.dumps(line))
-    print(smi.stdout.strip())
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -86,6 +86,15 @@ def unflatten(paths, leaves) -> dict:
     return tree
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure (the
+    counterpart of ``jax.tree.map`` for parameter trees)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def _leaf_2d(shape: tuple[int, ...]) -> tuple[int, int]:
     if len(shape) == 0:
         return 1, 1

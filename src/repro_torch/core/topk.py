@@ -4,9 +4,11 @@ Port of ``repro.core.topk``.  ``Delta = Top-k(U(S_e))`` — the k largest
 |estimate| coordinates of the error sketch over all d global ids — is
 found chunk by chunk: each chunk's estimates (the estimate kernel) give
 per-chunk candidates, and one top-k over the pool picks the winners.
-Both top-k steps stay library calls (``torch.topk``), as ``lax.top_k``
-stayed XLA in the reference.  ``torch.topk`` does not promise
-``lax.top_k``'s order among equal magnitudes.
+``topk_dense`` makes the same selection over a dense accumulator, for the
+baselines that keep one (local and true top-k).  Both top-k steps stay
+library calls (``torch.topk``), as ``lax.top_k`` stayed XLA in the
+reference.  ``torch.topk`` does not promise ``lax.top_k``'s order among
+equal magnitudes.
 
 Exactness: with at most ``EXACT_CHUNK_LIMIT`` chunks every chunk gives k
 candidates, so the result is exactly Top-k(U(S_e)); larger layouts cap
@@ -58,6 +60,32 @@ def topk_from_sketch(table: torch.Tensor, layout: layout_lib.ParamLayout,
             cand_local.append(idx)
             cand_chunk.append(torch.full((kk,), ci, dtype=torch.int64,
                                          device=table.device))
+    vals = torch.cat(cand_vals)
+    k_eff = min(k, vals.numel())
+    sel = torch.topk(vals.abs(), k_eff).indices
+    return SparseDelta(chunk_id=torch.cat(cand_chunk)[sel],
+                       local_idx=torch.cat(cand_local)[sel],
+                       values=vals[sel], k=k_eff)
+
+
+def topk_dense(acc_views: list, layout: layout_lib.ParamLayout,
+               k: int) -> SparseDelta:
+    """Exact top-|.|-k of a *dense* accumulator given as each leaf's 2-D
+    view (local top-k / true top-k): per-chunk candidates, then one top-k
+    over the pool."""
+    nall = layout.num_chunks
+    cand_vals, cand_local, cand_chunk = [], [], []
+    for g in layout.groups:
+        kk = _chunk_k(k, g.n_rows * g.row_len, nall)
+        view = acc_views[g.leaf]
+        for ci in g.chunk_ids:
+            rs = layout.chunks[ci].row_start
+            vals = view[rs:rs + g.n_rows].reshape(-1).to(torch.float32)
+            idx = torch.topk(vals.abs(), kk).indices
+            cand_vals.append(vals[idx])
+            cand_local.append(idx)
+            cand_chunk.append(torch.full((kk,), ci, dtype=torch.int64,
+                                         device=vals.device))
     vals = torch.cat(cand_vals)
     k_eff = min(k, vals.numel())
     sel = torch.topk(vals.abs(), k_eff).indices

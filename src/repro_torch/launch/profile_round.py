@@ -34,7 +34,7 @@ from repro_torch.core import layout as layout_lib
 from repro_torch.core import topk as topk_lib
 from repro_torch.data import federated, synthetic
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.launch.train_lm import sync, to_batch
+from repro_torch.launch.train_lm import sync
 from repro_torch.models import transformer
 from repro_torch.optim import linear_decay
 
@@ -55,7 +55,7 @@ def run_round(r, state, ctx, times):
 
     tables = []
     for c in federated.sample_clients(dataset.n_clients, 4, r):
-        batch = to_batch(dataset.client_batch(int(c)), device)
+        batch = federated.to_batch(dataset.client_batch(int(c)), device)
         _, g = timed("grad", lambda: transformer.value_and_grad(
             params, batch, cfg))
         tables.append(timed("sketch", lambda: F.sketch_grads(g, lay,

@@ -43,12 +43,6 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def to_batch(client_batch: dict, device) -> dict:
-    """A client's numpy batch as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(v, dtype=torch.int64, device=device)
-            for k, v in client_batch.items()}
-
-
 def train(cfg, fs_cfg: F.FetchSGDConfig, params: dict, dataset, *,
           rounds: int, clients_per_round: int, peak_lr: float, device,
           log=print):
@@ -70,7 +64,7 @@ def train(cfg, fs_cfg: F.FetchSGDConfig, params: dict, dataset, *,
         # each client participates once (the paper's single-epoch regime)
         tables, loss_sum = [], 0.0
         for c in clients:
-            batch = to_batch(dataset.client_batch(int(c)), device)
+            batch = federated.to_batch(dataset.client_batch(int(c)), device)
             loss, g = transformer.value_and_grad(params, batch, cfg)
             tables.append(F.sketch_grads(g, lay, fs_cfg))
             del g

@@ -267,3 +267,78 @@ def test_profile_round_times_the_three_parts_of_the_server_topk(dev):
     assert parts["chunks"] == lay.num_chunks
     assert all(parts[k] > 0 for k in ("estimate", "chunk_topk",
                                       "final_topk"))
+
+
+@pytest.mark.parametrize("rows", range(1, 11))
+@pytest.mark.parametrize("error_mode", ["zero", "subtract"])
+@pytest.mark.parametrize("cols,k,repeat", [(7, 257, False),
+                                           (130, 1003, True),
+                                           (1 << 20, 25_000, True)])
+def test_topk_mask_over_row_id_pairs_matches_plain(dev, rows, error_mode,
+                                                   cols, k, repeat):
+    """Every row count, k off the block size, ids repeated and ids that
+    share cells (7 columns): bitwise in zero mode, exact on integers in
+    subtract mode."""
+    gen = torch.Generator().manual_seed(rows * k + cols)
+    su, se = ints(gen, (rows, cols), dev, 50), ints(gen, (rows, cols), dev, 50)
+    ids = torch.randint(0, 2**42, (k,), generator=gen)
+    if repeat:
+        ids[k // 2:] = ids[:k - k // 2].clone()
+    ids, vals = ids.to(dev), ints(gen, (k,), dev, 20)
+    for masking in (True, False):
+        kw = dict(error_mode=error_mode, momentum_masking=masking)
+        got = cuda_ss.topk_mask(su.clone(), se.clone(), ids, vals, 2, **kw)
+        want = ref.topk_mask(su.clone(), se.clone(), ids, vals, 2, **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("grads_on", ["card", "cpu"])
+def test_orchestrator_on_the_card_matches_the_cpu(dev, grads_on):
+    """A micro federated run (async, stragglers, dropout) on the card and
+    on the CPU from the same weights: equal records and traffic, losses
+    within 1e-3.  The card encodes with the kernel, the CPU with the gather
+    plans; with gradients from the CPU on both sides (moved to the card)
+    only the sketch and server kernels differ.
+
+    The sketch has 2**16 columns, about 1.3 of the micro model's ids a
+    cell: at 3 x 4096 about 20 ids share each cell, ids that share the
+    median cell have equal estimates, and such a tie at the 64th |estimate|
+    made the card and the CPU move different coordinates (63 of 64 in
+    common), which moved round 1's loss by 3.2e-3.  The learning rate
+    starts above 0, as in ``test_torch_orchestrator.py``: a first round at
+    lr 0 makes Delta a top-k of ties."""
+    from repro_torch import fed
+    from repro_torch.launch import simulate
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_decay
+    cfg = simulate.micro_cfg()
+    init = dict(L.flatten(transformer.init_params(cfg, seed=0)))
+    fs_cfg = F.FetchSGDConfig(rows=3, cols=1 << 16, k=64)
+    fed_cfg = fed.FederationConfig(
+        rounds=3, clients_per_round=4, aggregate="async", seed=3,
+        straggler=fed.StragglerModel(straggle_prob=0.5, dropout_prob=0.1,
+                                     max_delay=2))
+
+    def cpu_grads(params, batch):
+        on_cpu = L.tree_map(lambda x: x.cpu(), params)
+        loss, g = transformer.value_and_grad(
+            on_cpu, L.tree_map(lambda x: x.cpu(), batch), cfg)
+        dev_of = next(iter(batch.values())).device
+        return loss, L.tree_map(lambda x: x.to(dev_of), g)
+
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        params = L.unflatten(list(init), [x.to(device, copy=True)
+                                          for x in init.values()])
+        runs[device.type] = fed.Orchestrator(
+            cfg, fs_cfg, fed_cfg, simulate.micro_dataset(cfg), params=params,
+            lr_fn=linear_decay(0.2, 3), device=device,
+            grad_fn=cpu_grads if grads_on == "cpu" else None).run()
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def counts(res):
+        return [{k: v for k, v in vars(r).items() if k != "loss"}
+                for r in res.records]
+    assert counts(card) == counts(cpu) and card.traffic == cpu.traffic
+    assert sum(r.n_late for r in cpu.records) > 0
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3)
