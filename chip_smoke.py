@@ -24,7 +24,15 @@ In order, it
    round-clock orchestrator (flat with dropout, async with late merges,
    tree) and each of the paper's baselines, checking losses, fates,
    traffic and the kernels' launches, and timing every round;
-6. prints the kernels line, the card's name and power limit, and last
+6. runs the event clock and the population-scale paths at full width
+   through ``repro_torch.fed.Orchestrator`` (event-clock flat, async and
+   tree over a population of 64; the vectorized round clock over 10**6
+   clients; lazy events of a 10**4-client cohort from 10**6 on the event
+   clock), checking launches, virtual time, traffic and every record
+   but its loss against the same configuration at the micro model's
+   width on the CPU, and reporting seconds per round, dispatch seconds
+   and peak device memory;
+7. prints the kernels line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -450,6 +458,186 @@ def fedsim_phase(torch, dev, smi_line: str) -> list[dict]:
     return out
 
 
+def eventsim_phase(torch, dev, smi_line: str) -> list[dict]:
+    """The event clock and the population-scale paths at full width
+    (gpt2s-federated, random weights from seed 0, PersonaLM clients at
+    seq 256, a 5 x 2**20 sketch, k = 25,000), each run checked against the
+    same configuration run on the CPU at the micro model's width: every
+    record field but the loss is a function of the seed and the
+    configuration, not of the model."""
+    from repro_torch import configs, fed
+    from repro_torch.core import compression
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config("gpt2s-federated")
+    micro = simulate.micro_cfg()
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    traffic = compression.fetchsgd_round(ROWS, COLS, K)
+    SM, Sim, Het = fed.StragglerModel, fed.SimTimeConfig, \
+        fed.HeterogeneityConfig
+    runs = [
+        ("event-flat", 64, 3, dict(
+            clock="event", aggregate="flat", clients_per_round=8,
+            straggler=SM(dropout_prob=0.25),
+            simtime=Sim(heterogeneity=Het(bandwidth_sigma=1.0)))),
+        ("event-async", 64, 3, dict(
+            clock="event", aggregate="async", clients_per_round=8,
+            straggler=SM(straggle_prob=0.25),
+            simtime=Sim(quorum=4, staleness_lambda=0.05, max_age=60.0))),
+        ("event-tree", 64, 2, dict(
+            clock="event", aggregate="tree", clients_per_round=8,
+            tree_fanout=2, simtime=Sim(link_bandwidth=1e8))),
+        ("pop-round", 10**6, 2, dict(
+            clock="round", aggregate="flat", clients_per_round=32,
+            vectorized=True, weight_by="profile",
+            simtime=Sim(heterogeneity=Het(profile_stream="counter")))),
+        ("pop-event", 10**6, 3, dict(
+            clock="event", aggregate="async", clients_per_round=10**4,
+            vectorized=True, simtime=Sim(quorum=16))),
+    ]
+    param_bytes = 4 * D_FULL
+    print(f"eventsim on {smi_line}")
+    out = []
+    for name, population, rounds, kw in runs:
+        fed_cfg = fed.FederationConfig(rounds=rounds, seed=0, **kw)
+        # the same configuration at the micro model's width, on the CPU
+        cpu = fed.Orchestrator(
+            micro, fs_cfg, fed_cfg,
+            synthetic.PersonaLM(vocab=micro.vocab, seq_len=16,
+                                n_clients=population),
+            device="cpu").run()
+
+        orch = fed.Orchestrator(
+            cfg, fs_cfg, fed_cfg,
+            synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
+                                n_clients=population),
+            params=transformer.init_params(cfg, 0, dev), device=dev)
+        # the largest client computed sets the peak of activations
+        largest = [0]
+        batch_of = orch._client_batch
+
+        def client_batch(c, batch_of=batch_of):
+            batch = batch_of(c)
+            largest[0] = max(largest[0], len(batch["tokens"]))
+            return batch
+        orch._client_batch = client_batch
+        dispatch_s: list[float] = []
+        if orch.vectorized and orch.is_event:
+            inner = orch._dispatch_cohort_vec
+
+            def timed_dispatch(r, inner=inner):
+                t0 = time.perf_counter()
+                got = inner(r)
+                dispatch_s.append(time.perf_counter() - t0)
+                return got
+            orch._dispatch_cohort_vec = timed_dispatch
+        seconds: list[float] = []
+        snapshots = [0]
+        clock = [time.perf_counter()]
+
+        def progress(rec):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seconds.append(now - clock[0])
+            clock[0] = now
+            snapshots[0] = max(snapshots[0], orch.held_snapshots)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        clock[0] = time.perf_counter()
+        res = orch.run(progress=progress)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        recs = res.records
+        print(f"{name}: losses {res.losses}; s/round {seconds}; dispatch "
+              f"s {dispatch_s}; peak memory {peak / 2**30:.3f} GiB; "
+              f"largest client {largest[0]} sequences; weight copies held "
+              f"at most {snapshots[0]}; launches {counts} ({smi_line})")
+
+        def meta(rr):
+            return [{k: v for k, v in vars(r).items() if k != "loss"}
+                    for r in rr]
+        check(meta(recs) == meta(cpu.records),
+              f"{name}: every record but its loss equals the micro model's "
+              f"on the CPU")
+        moved = ("upload_bytes", "download_bytes")
+        check(res.extras["in_flight"] == cpu.extras["in_flight"]
+              and all(res.traffic[k] == cpu.traffic[k] for k in moved),
+              f"{name}: in flight ({res.extras['in_flight']}) and bytes "
+              f"moved equal the CPU run's")
+        check(all(math.isfinite(x) for x in res.losses if x is not None),
+              f"{name}: every loss finite")
+        sent = [len(r.cohort) - r.n_dropped for r in recs]
+        meter = compression.TrafficMeter(d=D_FULL)
+        if orch.is_event:
+            times = [r.t_virtual for r in recs]
+            check(all(a <= b for a, b in zip(times, times[1:]))
+                  and all(r.t_dispatch <= r.t_virtual for r in recs),
+                  f"{name}: virtual time never goes back ({times})")
+            before = [0] + [r.n_straggling for r in recs[:-1]]
+            arrivals = [b + s - r.n_straggling
+                        for b, s, r in zip(before, sent, recs)]
+            materialized = sum(arrivals if orch.vectorized else sent)
+            for r, s, a in zip(recs, sent, arrivals):
+                internal = (sum(b for _, b in F.tree_level_bytes(
+                                traffic.upload, r.n_fresh,
+                                fed_cfg.tree_fanout)[1:])
+                            if fed_cfg.aggregate == "tree" else 0)
+                check(r.upload_bytes == s * traffic.upload + internal,
+                      f"{name} round {r.round_idx}: upload {r.upload_bytes}"
+                      f" = {s} x {traffic.upload} + {internal} of tree "
+                      f"forwards")
+                meter.record(compression.RoundTraffic(
+                    upload=r.upload_bytes, download=traffic.download * a), 1)
+        else:
+            materialized = sum(sent)
+            for r in recs:
+                check(r.upload_bytes == r.n_fresh * traffic.upload,
+                      f"{name} round {r.round_idx}: upload = {r.n_fresh} x "
+                      f"{traffic.upload}")
+                meter.record(compression.RoundTraffic(
+                    upload=r.upload_bytes,
+                    download=traffic.download * (r.n_fresh
+                                                 + r.n_straggling)), 1)
+        check(res.traffic == meter.compression(fed_cfg.clients_per_round),
+              f"{name}: traffic = core/compression's reckoning")
+        updates = sum(r.n_fresh + r.n_late > 0 for r in recs)
+        want = {"encode": N_CHUNKS * materialized,
+                "estimate": N_CHUNKS * updates,
+                "momentum_error": updates, "topk_mask": updates}
+        check(counts == want,
+              f"{name}: {N_CHUNKS} encodes for each of the {materialized} "
+              f"clients computed; {N_CHUNKS} estimates, 1 momentum_error "
+              f"and 1 topk_mask for each of the {updates} server updates")
+        if name == "event-async":
+            check(sum(r.n_late for r in recs) > 0
+                  and res.extras["in_flight"] > 0,
+                  f"{name}: tables merged late while others stay in flight")
+        if name == "pop-event":
+            check(materialized == rounds * 16 and len(dispatch_s) == rounds,
+                  f"{name}: {materialized} clients computed of "
+                  f"{sum(sent)} dispatched")
+            check(snapshots[0] >= 2,
+                  f"{name}: {snapshots[0]} weight copies held for lazy "
+                  f"events of earlier rounds")
+        out.append(dict(
+            run=name, population=population, rounds=rounds,
+            clients_per_round=fed_cfg.clients_per_round,
+            clients_computed=materialized, losses=res.losses,
+            seconds=seconds, dispatch_seconds=dispatch_s,
+            peak_memory_bytes=peak, largest_client_sequences=largest[0],
+            weight_copies_peak=snapshots[0],
+            weight_copies_peak_bytes=snapshots[0] * param_bytes,
+            launches=counts, t_virtual=[r.t_virtual for r in recs],
+            in_flight=res.extras["in_flight"], traffic=res.traffic))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -489,6 +677,10 @@ def main() -> int:
     fedsim = fedsim_phase(torch, dev, smi)
     (OUT / "chip_smoke_fedsim.json").write_text(json.dumps(
         {"device": smi, "runs": fedsim}, indent=1))
+    print("eventsim: the event clock and the population paths at full width")
+    eventsim = eventsim_phase(torch, dev, smi)
+    (OUT / "chip_smoke_eventsim.json").write_text(json.dumps(
+        {"device": smi, "runs": eventsim}, indent=1))
 
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",

@@ -1,6 +1,6 @@
 """Sketch aggregation policies — the merge step of FetchSGD, made pluggable.
 
-Port of ``repro.fed.aggregator`` for the round clock.  The server update
+Port of ``repro.fed.aggregator``.  The server update
 consumes one thing: the mean of the cohort's sketch tables.  Because the
 Count Sketch is linear, *how* that mean is formed is a free choice — a
 flat reduction, a hierarchical k-ary tree, or an asynchronous buffer that
@@ -17,17 +17,24 @@ aggregation topology carries one full (rows x cols) float32 table.
   forwards one merged table: ``(n + ceil(n/f) + ...) * table_bytes``, but
   no node receives more than ``fanout`` tables.
 * async: the totals of flat, but contributions may arrive ``s`` rounds
-  late and are merged with weight ``discount**s``.
+  late and are merged with weight ``discount**s``.  Under the event clock
+  (``staleness_lambda`` set) staleness is measured in *virtual seconds*
+  and the discount is ``exp(-lambda * age)``.
+
+Wall-clock accounting: when per-edge bandwidths are supplied
+(``bandwidths=`` per leaf, ``link_bandwidth`` for internal tree edges),
+each level also reports its slowest edge's transfer time; transfers within
+a level run in parallel, so the topology's critical path is the sum of
+per-level maxima (``AggregationStats.critical_path_s``).
 
 Every merge keeps the reference's order of summation, so tables of
-integer values come out bit for bit as the reference's.  The event
-clock's accounting (per-edge seconds, the critical path) waits for the
-port of that clock.
+integer values come out bit for bit as the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import torch
@@ -42,6 +49,8 @@ class LevelStats:
     level: int
     n_messages: int         # tables sent up from this level
     bytes_on_wire: int      # n_messages * table_bytes
+    max_edge_seconds: float = 0.0   # slowest edge transfer at this level
+                                    # (0 when no bandwidths were supplied)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +65,8 @@ class AggregationStats:
     n_late: int             # buffered tables folded in (async only)
     total_weight: float     # sum of effective contribution weights
     levels: tuple[LevelStats, ...]
-    max_staleness: float = 0   # oldest late contribution merged, in rounds
+    max_staleness: float = 0   # oldest late contribution merged: rounds
+                               # (round clock) or virtual seconds (event)
 
     @property
     def upload_bytes(self) -> int:
@@ -67,21 +77,42 @@ class AggregationStats:
         """Tables received by the final merge node — the fan-in bottleneck."""
         return self.levels[-1].n_messages if self.levels else 0
 
+    @property
+    def critical_path_s(self) -> float:
+        """Wall-clock lower bound of the merge: the sum of each level's
+        slowest edge (levels are sequential, edges of a level parallel)."""
+        return sum(lv.max_edge_seconds for lv in self.levels)
 
-def tree_levels(n: int, fanout: int, table_bytes: int
+
+def tree_levels(n: int, fanout: int, table_bytes: int,
+                leaf_bandwidths: Sequence[float] | None = None,
+                link_bandwidth: float | None = None
                 ) -> tuple[LevelStats, ...]:
     """Per-level message counts for a ``fanout``-ary merge of ``n`` leaves
-    (``core.fetchsgd.tree_level_bytes``)."""
-    return tuple(LevelStats(level=lv, n_messages=msgs, bytes_on_wire=bts)
+    (``core.fetchsgd.tree_level_bytes``).  ``leaf_bandwidths`` (bytes/s,
+    one per leaf) and ``link_bandwidth`` (internal edges) add per-level
+    seconds: level 0's slowest edge is the slowest client uplink, deeper
+    levels ride the backbone."""
+    def edge_s(lv: int) -> float:
+        if lv == 0 and leaf_bandwidths:
+            return table_bytes / min(leaf_bandwidths)
+        if lv > 0 and link_bandwidth:
+            return table_bytes / link_bandwidth
+        return 0.0
+    return tuple(LevelStats(level=lv, n_messages=msgs, bytes_on_wire=bts,
+                            max_edge_seconds=edge_s(lv))
                  for lv, (msgs, bts) in
                  enumerate(F.tree_level_bytes(table_bytes, n, fanout)))
 
 
-def _leaf_level(n: int, table_bytes: int) -> tuple[LevelStats, ...]:
+def _leaf_level(n: int, table_bytes: int,
+                bandwidths: Sequence[float] | None) -> tuple[LevelStats, ...]:
     """Single-level (flat/async) stats; () for an empty round."""
     if n == 0:
         return ()
-    return (LevelStats(level=0, n_messages=n, bytes_on_wire=n * table_bytes),)
+    edge = table_bytes / min(bandwidths) if bandwidths else 0.0
+    return (LevelStats(level=0, n_messages=n, bytes_on_wire=n * table_bytes,
+                       max_edge_seconds=edge),)
 
 
 class Aggregator:
@@ -104,11 +135,13 @@ class Aggregator:
 
     def aggregate(self, tables: Sequence[torch.Tensor], *,
                   weights: Sequence[float] | None = None,
-                  round_idx: int = 0
+                  round_idx: float = 0,
+                  bandwidths: Sequence[float] | None = None
                   ) -> tuple[torch.Tensor, AggregationStats]:
         raise NotImplementedError
 
-    def aggregate_stream(self, pairs, *, round_idx: int = 0
+    def aggregate_stream(self, pairs, *, round_idx: float = 0,
+                         bandwidths: Sequence[float] | None = None
                          ) -> tuple[torch.Tensor, AggregationStats]:
         """Merge an *iterator* of ``(table, weight)`` pairs as they appear,
         in ``aggregate``'s order of summation (see ``_fold`` for the total
@@ -147,20 +180,21 @@ class FlatAggregator(Aggregator):
 
     name = "flat"
 
-    def aggregate(self, tables, *, weights=None, round_idx=0):
+    def aggregate(self, tables, *, weights=None, round_idx=0,
+                  bandwidths=None):
         tables, weights = self._weighted(tables, weights)
         acc, n, _ = self._fold(zip(tables, weights))
-        return self._finish(acc, sum(weights), n)
+        return self._finish(acc, sum(weights), n, bandwidths)
 
-    def aggregate_stream(self, pairs, *, round_idx=0):
+    def aggregate_stream(self, pairs, *, round_idx=0, bandwidths=None):
         acc, n, total_w = self._fold(pairs)
-        return self._finish(acc, total_w, n)
+        return self._finish(acc, total_w, n, bandwidths)
 
-    def _finish(self, acc, total_w, n):
+    def _finish(self, acc, total_w, n, bandwidths):
         table = acc / total_w if total_w > 0 else acc
         return table, AggregationStats(
             policy=self.name, n_fresh=n, n_late=0, total_weight=total_w,
-            levels=_leaf_level(n, self.table_bytes))
+            levels=_leaf_level(n, self.table_bytes, bandwidths))
 
 
 class TreeAggregator(Aggregator):
@@ -173,13 +207,18 @@ class TreeAggregator(Aggregator):
 
     name = "tree"
 
-    def __init__(self, cfg: F.FetchSGDConfig, fanout: int = 4, device=None):
+    def __init__(self, cfg: F.FetchSGDConfig, fanout: int = 4,
+                 link_bandwidth: float | None = None, device=None):
         super().__init__(cfg, device)
         if fanout < 2:
             raise ValueError(f"fanout must be >= 2, got {fanout}")
+        if link_bandwidth is not None and link_bandwidth <= 0:
+            raise ValueError("link_bandwidth must be > 0")
         self.fanout = fanout
+        self.link_bandwidth = link_bandwidth   # internal-edge bytes/s
 
-    def aggregate(self, tables, *, weights=None, round_idx=0):
+    def aggregate(self, tables, *, weights=None, round_idx=0,
+                  bandwidths=None):
         tables, weights = self._weighted(tables, weights)
         total_w = sum(weights)
         nodes = [t if w == 1.0 else w * t for t, w in zip(tables, weights)]
@@ -187,9 +226,9 @@ class TreeAggregator(Aggregator):
             nodes = [sum(nodes[i:i + self.fanout][1:], start=nodes[i])
                      for i in range(0, len(nodes), self.fanout)]
         acc = nodes[0] if nodes else self._zeros()
-        return self._finish(acc, total_w, len(tables))
+        return self._finish(acc, total_w, len(tables), bandwidths)
 
-    def aggregate_stream(self, pairs, *, round_idx=0):
+    def aggregate_stream(self, pairs, *, round_idx=0, bandwidths=None):
         # Per-level stacks of < fanout pending nodes; a level folds the
         # moment its stack fills.  The groups are the positional chunks
         # ``aggregate`` forms, folded in the same order.
@@ -220,13 +259,15 @@ class TreeAggregator(Aggregator):
             if stack:
                 carry = sum(stack[1:], start=stack[0])
         acc = carry if carry is not None else self._zeros()
-        return self._finish(acc, total_w, n)
+        return self._finish(acc, total_w, n, bandwidths)
 
-    def _finish(self, acc, total_w, n):
+    def _finish(self, acc, total_w, n, bandwidths):
         table = acc / total_w if total_w > 0 else acc
         return table, AggregationStats(
             policy=self.name, n_fresh=n, n_late=0, total_weight=total_w,
-            levels=tree_levels(n, self.fanout, self.table_bytes))
+            levels=tree_levels(n, self.fanout, self.table_bytes,
+                               leaf_bandwidths=bandwidths,
+                               link_bandwidth=self.link_bandwidth))
 
 
 class AsyncBufferedAggregator(Aggregator):
@@ -235,24 +276,57 @@ class AsyncBufferedAggregator(Aggregator):
     A client that finishes ``s`` rounds late still contributes: its table
     is folded into round ``r`` with weight ``discount**s``.  By linearity
     this is exact.  With no late arrivals the merge order (and hence the
-    result, bitwise) is ``FlatAggregator``'s.  Entries staler than
-    ``max_staleness`` rounds are dropped.
+    result, bitwise) is ``FlatAggregator``'s.
+
+    Two clocks share one buffer:
+
+    * **round clock** (default): ``produced``/``arrival`` are round
+      indices, the discount is geometric (``discount**s``) and entries
+      staler than ``max_staleness`` rounds are dropped.
+    * **event clock** (``staleness_lambda`` set): ``produced``/``arrival``
+      are virtual seconds, the discount is ``exp(-lambda * age)`` and
+      ``max_age`` (seconds, None = keep everything) is the drop threshold.
     """
 
     name = "async"
 
     def __init__(self, cfg: F.FetchSGDConfig, discount: float = 0.9,
-                 max_staleness: int = 8, device=None):
+                 max_staleness: int = 8,
+                 staleness_lambda: float | None = None,
+                 max_age: float | None = None, device=None):
         super().__init__(cfg, device)
         if not 0.0 < discount <= 1.0:
             raise ValueError(f"discount must be in (0, 1], got {discount}")
+        if staleness_lambda is not None and staleness_lambda < 0:
+            raise ValueError("staleness_lambda must be >= 0")
         self.discount = discount
         self.max_staleness = max_staleness
+        self.staleness_lambda = staleness_lambda
+        self.max_age = max_age
         self._buffer: list[dict] = []   # {table, produced, arrival, weight}
 
-    def submit(self, table: torch.Tensor, *, produced_round: int,
-               arrival_round: int, weight: float = 1.0) -> None:
-        """Enqueue a straggler's table to be merged once it 'arrives'."""
+    @property
+    def timed(self) -> bool:
+        """True when staleness is measured in virtual seconds."""
+        return self.staleness_lambda is not None
+
+    def _discount_for(self, age) -> float:
+        if self.timed:
+            return math.exp(-self.staleness_lambda * age)
+        return self.discount ** age
+
+    def _too_stale(self, age) -> bool:
+        if self.timed:
+            return self.max_age is not None and age > self.max_age
+        return age > self.max_staleness
+
+    def submit(self, table: torch.Tensor, *, produced_round,
+               arrival_round, weight: float = 1.0) -> None:
+        """Enqueue a straggler's table to be merged once it 'arrives'.
+
+        Under the event clock the two arguments are virtual-second floats
+        (dispatch time and arrival time).
+        """
         if arrival_round <= produced_round:
             raise ValueError("arrival_round must be > produced_round")
         self._buffer.append(dict(table=table, produced=produced_round,
@@ -267,40 +341,51 @@ class AsyncBufferedAggregator(Aggregator):
 
     def load_state(self, entries: list[dict]) -> None:
         """Restore a saved buffer (replaces current contents)."""
-        self._buffer = [dict(table=e["table"], produced=int(e["produced"]),
-                             arrival=int(e["arrival"]),
+        cast = float if self.timed else int
+        self._buffer = [dict(table=e["table"], produced=cast(e["produced"]),
+                             arrival=cast(e["arrival"]),
                              weight=float(e["weight"])) for e in entries]
 
-    def drain(self, round_idx: int
-              ) -> tuple[torch.Tensor, float, int, float]:
+    def _new_late(self) -> dict:
+        """An empty late fold: (weighted sum, weight, n, max staleness)."""
+        return dict(acc=self._zeros(), w=0.0, n=0, max_s=0)
+
+    def _take(self, late: dict, e: dict, now, keep: list) -> None:
+        """Fold one buffered entry into ``late`` if it has arrived by
+        ``now`` and is not too stale; keep it if it has not arrived."""
+        if e["arrival"] > now:
+            keep.append(e)
+            return
+        s = now - e["produced"]
+        if self._too_stale(s):
+            return
+        w = e["weight"] * self._discount_for(s)
+        late["acc"] = late["acc"] + w * e["table"]
+        late["w"] += w
+        late["n"] += 1
+        late["max_s"] = max(late["max_s"], s)
+
+    def drain(self, round_idx) -> tuple[torch.Tensor, float, int, float]:
         """Pop arrived entries: (discounted weighted sum, weight, n, max_s).
 
-        Entries staler than ``max_staleness`` are dropped on the floor.
+        ``round_idx`` is the current round (round clock) or the current
+        virtual time in seconds (event clock).  Entries staler than the
+        clock's drop threshold are dropped on the floor.
         """
-        acc, total_w, n, max_s = self._zeros(), 0.0, 0, 0
-        keep = []
+        late, keep = self._new_late(), []
         for e in self._buffer:
-            if e["arrival"] > round_idx:
-                keep.append(e)
-                continue
-            s = round_idx - e["produced"]
-            if s > self.max_staleness:
-                continue
-            w = e["weight"] * self.discount ** s
-            acc = acc + w * e["table"]
-            total_w += w
-            n += 1
-            max_s = max(max_s, s)
+            self._take(late, e, round_idx, keep)
         self._buffer = keep
-        return acc, total_w, n, max_s
+        return late["acc"], late["w"], late["n"], late["max_s"]
 
-    def aggregate(self, tables, *, weights=None, round_idx=0):
+    def aggregate(self, tables, *, weights=None, round_idx=0,
+                  bandwidths=None):
         tables, weights = self._weighted(tables, weights)
         late = self.drain(round_idx)
         acc, n, _ = self._fold(zip(tables, weights))
-        return self._finish(acc, sum(weights), n, *late)
+        return self._finish(acc, sum(weights), n, *late, bandwidths)
 
-    def aggregate_stream(self, pairs, *, round_idx=0):
+    def aggregate_stream(self, pairs, *, round_idx=0, bandwidths=None):
         """Drain the arrived buffer first, then fold the fresh pairs.
 
         Stragglers submitted while the iterator runs (``arrival >
@@ -309,27 +394,59 @@ class AsyncBufferedAggregator(Aggregator):
         """
         late = self.drain(round_idx)
         acc, n, fresh_w = self._fold(pairs)
-        return self._finish(acc, fresh_w, n, *late)
+        return self._finish(acc, fresh_w, n, *late, bandwidths)
 
-    def _finish(self, acc, fresh_w, n, late_sum, late_w, n_late, max_s):
+    def merge_timed_stream(self, arrivals, *, now, bandwidths=None):
+        """Submit-and-drain an *iterator* of ``(table, produced, arrival,
+        weight)`` tuples in one pass.
+
+        Bitwise equivalent to ``submit(...)`` per arrival followed by
+        ``aggregate([], round_idx=now)``: the buffered entries are visited
+        first, then the arrivals in order, under the same discount /
+        too-stale / keep rule; but each arrival's table is folded the moment
+        the iterator yields it, so the population-scale event loop never
+        buffers a cohort's tables.
+        """
+        late, keep = self._new_late(), []
+        for e in self._buffer:
+            self._take(late, e, now, keep)
+        for table, produced, arrival, weight in arrivals:
+            if arrival <= produced:
+                raise ValueError("arrival_round must be > produced_round")
+            self._take(late, dict(table=table, produced=produced,
+                                  arrival=arrival, weight=float(weight)),
+                       now, keep)
+        self._buffer = keep
+        # the tail of aggregate([]) op for op: an empty fresh fold, 0 + the
+        # late weight, zeros + the late sum
+        return self._finish(self._zeros(), 0, 0, late["acc"], late["w"],
+                            late["n"], late["max_s"], bandwidths)
+
+    def _finish(self, acc, fresh_w, n, late_sum, late_w, n_late, max_s,
+                bandwidths):
         total_w = fresh_w + late_w
         acc = acc + late_sum if n_late else acc
         table = acc / total_w if total_w > 0 else acc
         return table, AggregationStats(
             policy=self.name, n_fresh=n, n_late=n_late,
             total_weight=total_w, max_staleness=max_s,
-            levels=_leaf_level(n + n_late, self.table_bytes))
+            levels=_leaf_level(n + n_late, self.table_bytes, bandwidths))
 
 
 def make_aggregator(policy: str, cfg: F.FetchSGDConfig, *, fanout: int = 4,
                     discount: float = 0.9, max_staleness: int = 8,
+                    staleness_lambda: float | None = None,
+                    max_age: float | None = None,
+                    link_bandwidth: float | None = None,
                     device=None) -> Aggregator:
     if policy == "flat":
         return FlatAggregator(cfg, device)
     if policy == "tree":
-        return TreeAggregator(cfg, fanout=fanout, device=device)
+        return TreeAggregator(cfg, fanout=fanout,
+                              link_bandwidth=link_bandwidth, device=device)
     if policy == "async":
         return AsyncBufferedAggregator(cfg, discount=discount,
                                        max_staleness=max_staleness,
-                                       device=device)
+                                       staleness_lambda=staleness_lambda,
+                                       max_age=max_age, device=device)
     raise ValueError(f"unknown aggregation policy {policy!r}")

@@ -1,16 +1,21 @@
 """Single-host federated simulation — the engine behind the paper's figures.
 
-Port of ``repro.launch.simulate`` for the round clock.  Runs any of the
-paper's methods (FetchSGD, local top-k, FedAvg, uncompressed, true top-k)
-over the synthetic non-i.i.d. federated datasets and reports loss history
-and upload/download compression.  FetchSGD goes through the federation
-runtime (``repro_torch.fed``); the baselines keep their own loops.  Runs
-on the card unless ``device="cpu"``.
+Port of ``repro.launch.simulate``.  Runs any of the paper's methods
+(FetchSGD, local top-k, FedAvg, uncompressed, true top-k) over the
+synthetic non-i.i.d. federated datasets and reports loss history and
+upload/download compression.  FetchSGD goes through the federation
+runtime (``repro_torch.fed``), on the round or the event clock; the
+baselines keep their own loops.  Runs on the card unless
+``device="cpu"``.
 
     PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
         --aggregate tree --rounds 5
     PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
         --method fedavg --rounds 5
+    PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
+        --clock event --aggregate async --rounds 5 --bw-sigma 2.0
+    PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
+        --clock event --population 100000 --rounds 3
 """
 
 from __future__ import annotations
@@ -140,6 +145,8 @@ def run_simulation(cfg, *, method: str = "fetchsgd", rounds: int = 30,
         extras["fs_cfg"] = fs_cfg
         extras["fed_records"] = res.records
         extras["pending_late"] = res.extras["pending_late"]
+        extras["in_flight"] = res.extras["in_flight"]
+        extras["t_virtual"] = res.extras["t_virtual"]
         return SimResult(method=method,
                          losses=[l if l is not None else float("nan")
                                  for l in res.losses],
@@ -231,13 +238,26 @@ def run_simulation(cfg, *, method: str = "fetchsgd", rounds: int = 30,
 
 
 def main(argv=None, log=print):
-    """Command line: micro-config federated runs (round clock)."""
+    """Command line: micro-config federated runs, on the round or the event
+    clock."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--method", default="fetchsgd", choices=METHODS)
     ap.add_argument("--aggregate", default="flat",
                     choices=("flat", "tree", "async"))
     ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--clients-per-round", type=int, default=4)
+    ap.add_argument("--clients-per-round", type=int, default=None,
+                    help="cohort size (default 4; with --population, "
+                         "max(4, population // 100))")
+    ap.add_argument("--population", type=int, default=None,
+                    help="total client population; switches on the "
+                         "vectorized dispatch path (event clock: lazy "
+                         "events + bucketed queue; round clock: column "
+                         "fates/weights + streaming folds)")
+    ap.add_argument("--profile-stream", default="counter",
+                    choices=("legacy", "counter"),
+                    help="per-client profile rng: counter = vectorized "
+                         "Philox (fed.profile_rng, the default); legacy = "
+                         "per-client default_rng")
     ap.add_argument("--min-clients-per-round", type=int, default=None)
     ap.add_argument("--tree-fanout", type=int, default=2)
     ap.add_argument("--dropout-prob", type=float, default=0.0)
@@ -247,14 +267,57 @@ def main(argv=None, log=print):
     ap.add_argument("--peak-lr", type=float, default=0.2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--weight-by", default="uniform",
-                    choices=("uniform", "samples"),
+                    choices=("uniform", "samples", "profile"),
                     help="per-client merge weights (FedSKETCH-style)")
+    # event clock (fed.simtime): wall-clock federation over heterogeneous
+    # client profiles
+    ap.add_argument("--clock", default="round", choices=("round", "event"))
+    ap.add_argument("--quorum", type=int, default=None,
+                    help="event+async: server updates every N arrivals")
+    ap.add_argument("--staleness-lambda", type=float, default=0.05,
+                    help="event: discount exp(-lambda * age_seconds)")
+    ap.add_argument("--max-age", type=float, default=None,
+                    help="event: drop contributions older than this (s)")
+    ap.add_argument("--link-bandwidth", type=float, default=1e8,
+                    help="event: backbone bytes/s for internal tree edges")
+    ap.add_argument("--compute-median", type=float, default=1.0,
+                    help="event: median client compute seconds/round")
+    ap.add_argument("--compute-sigma", type=float, default=0.5)
+    ap.add_argument("--bw-median", type=float, default=1e6,
+                    help="event: median client uplink bytes/s")
+    ap.add_argument("--bw-sigma", type=float, default=1.0,
+                    help="event: lognormal uplink spread (2+ = heavy skew)")
+    ap.add_argument("--avail-period", type=float, default=0.0,
+                    help="event: availability window period (0 = always up)")
+    ap.add_argument("--avail-duty-min", type=float, default=1.0)
+    ap.add_argument("--avail-duty-max", type=float, default=1.0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
 
+    if args.population is not None and args.population < 1:
+        ap.error(f"--population must be >= 1, got {args.population}")
+    if args.clients_per_round is None:
+        args.clients_per_round = (max(4, args.population // 100)
+                                  if args.population is not None else 4)
+
     cfg = micro_cfg()
-    dataset = micro_dataset(cfg, seed=args.seed)
+    dataset = micro_dataset(cfg, seed=args.seed,
+                            n_clients=args.population or 64)
+    # built for both clocks: the round clock reads the heterogeneity
+    # profiles too (weight_by=profile, vectorized column weights)
+    simtime = fed.SimTimeConfig(
+        staleness_lambda=args.staleness_lambda, max_age=args.max_age,
+        quorum=args.quorum, link_bandwidth=args.link_bandwidth,
+        heterogeneity=fed.HeterogeneityConfig(
+            compute_median=args.compute_median,
+            compute_sigma=args.compute_sigma,
+            bandwidth_median=args.bw_median,
+            bandwidth_sigma=args.bw_sigma,
+            avail_period=args.avail_period,
+            avail_duty_min=args.avail_duty_min,
+            avail_duty_max=args.avail_duty_max,
+            profile_stream=args.profile_stream))
     fed_cfg = fed.FederationConfig(
         rounds=args.rounds, clients_per_round=args.clients_per_round,
         min_clients_per_round=args.min_clients_per_round,
@@ -263,23 +326,33 @@ def main(argv=None, log=print):
         straggler=fed.StragglerModel(dropout_prob=args.dropout_prob,
                                      straggle_prob=args.straggle_prob,
                                      max_delay=args.max_delay),
-        weight_by=args.weight_by, seed=args.seed)
+        clock=args.clock, simtime=simtime, weight_by=args.weight_by,
+        seed=args.seed, vectorized=args.population is not None)
     res = run_simulation(cfg, method=args.method, rounds=args.rounds,
                          clients_per_round=args.clients_per_round,
                          peak_lr=args.peak_lr, dataset=dataset,
                          seed=args.seed, aggregate=args.aggregate,
                          fed_cfg=fed_cfg if args.method == "fetchsgd"
                          else None, device=args.device)
-    log(f"method={args.method} aggregate={args.aggregate} clock=round")
+    log(f"method={args.method} aggregate={args.aggregate} "
+        f"clock={args.clock}")
     records = res.extras.get("fed_records") or [None] * len(res.losses)
     for r, (loss, rec) in enumerate(zip(res.losses, records)):
         detail = (f"  fresh={rec.n_fresh} late={rec.n_late} "
                   f"dropped={rec.n_dropped}" if rec else "")
+        if rec and rec.t_virtual is not None:
+            detail += (f" t={rec.t_virtual:8.1f}s"
+                       f" critical_path={rec.critical_path_s:6.1f}s"
+                       f" in_flight={rec.n_straggling}")
         log(f"round {rec.round_idx if rec else r}: loss {loss:.4f}{detail}")
     t = res.traffic
     log(f"traffic: up={t['upload_bytes']/1e6:.2f}MB "
         f"down={t['download_bytes']/1e6:.2f}MB "
         f"compression {t['total_x']:.1f}x")
+    if res.extras.get("t_virtual") is not None:
+        log(f"virtual wall-clock: {res.extras['t_virtual']:.1f}s for "
+            f"{len(res.losses)} rounds "
+            f"({res.extras['in_flight']} uploads still in flight)")
     if not math.isfinite(res.losses[-1]):
         raise RuntimeError(
             "non-finite final loss (diverged, or no client participated)")

@@ -5,7 +5,9 @@ Tables hold small integers and weights are binary fractions, so every
 float32 sum, product and the final division round alike in both packages
 whatever the framework: the merged tables are compared bit for bit, and
 the stats field for field (``dataclasses.asdict``).  The cases are those
-of ``tests/test_fed_runtime.py`` (linearity, the async buffer, bytes).
+of ``tests/test_fed_runtime.py`` (linearity, the async buffer, bytes) and
+of the event clock in ``tests/test_simtime.py`` and
+``tests/test_population.py`` (per-edge seconds, the timed buffer).
 """
 
 import dataclasses
@@ -36,12 +38,9 @@ def make(policy: str, **kw):
 
 
 def fields(stats) -> dict:
-    """The stats as a dict, without the event clock's per-edge seconds
-    (the reference's, all 0 on the round clock; the port has none)."""
-    d = dataclasses.asdict(stats)
-    for lv in d.get("levels", ()):
-        assert lv.pop("max_edge_seconds", 0.0) == 0.0
-    return d
+    """The stats as a dict, the per-edge seconds and critical path too."""
+    return dict(dataclasses.asdict(stats),
+                critical_path_s=stats.critical_path_s)
 
 
 def assert_same(ref, port):
@@ -204,3 +203,111 @@ def test_bad_arguments_raise_as_in_the_reference():
     with pytest.raises(ValueError, match="weights"):
         TA.FlatAggregator(TCFG).aggregate([torch.zeros(3, 1 << 10)],
                                           weights=[1.0, 2.0])
+
+
+# -- the event clock's arguments ----------------------------------------------
+
+
+def timed_arrivals(seed: int, n: int) -> list[tuple]:
+    """(table, produced, arrival, weight) with virtual-second times, as in
+    ``tests/test_population.py``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in rng.uniform(0.0, 20.0, size=n):
+        out.append((rng.integers(-50, 51, (3, 1 << 10)).astype(np.float32),
+                    float(p), float(p) + float(rng.uniform(0.5, 30.0)),
+                    float(rng.uniform(0.5, 2.0))))
+    return out
+
+
+BWS = [3e4, 1e5, 7.5e3, 2e6, 5e5]
+
+
+@pytest.mark.parametrize("method", ["aggregate", "aggregate_stream"])
+@pytest.mark.parametrize("policy,kw", [("flat", {}),
+                                       ("tree", {"fanout": 2}),
+                                       ("tree", {"fanout": 2,
+                                                 "link_bandwidth": 1e6}),
+                                       ("async", {})])
+def test_per_edge_seconds_match_the_reference(method, policy, kw):
+    ts = tables(9, len(BWS))
+    ref, port = both(make(policy, **kw), ts, method, bandwidths=BWS)
+    assert_same(ref, port)
+    tb = TF.upload_bytes(TCFG)
+    assert port[1].levels[0].max_edge_seconds == tb / min(BWS)
+    internal = (tb / kw["link_bandwidth"] if "link_bandwidth" in kw
+                else 0.0) * (len(port[1].levels) - 1)
+    assert port[1].critical_path_s == tb / min(BWS) + internal
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.05, 0.3])
+@pytest.mark.parametrize("now,max_age", [(25.0, None), (25.0, 20.0),
+                                         (25.0, 12.0), (40.0, 30.0)])
+def test_timed_async_merge_matches_the_reference(lam, max_age, now):
+    """Staleness in virtual seconds: weight ``w * exp(-lambda * age)``,
+    ``max_age`` drops; the buffer's end state too."""
+    arr = timed_arrivals(7, 12)
+    ja, ta = make("async", staleness_lambda=lam, max_age=max_age)
+    assert ta.timed and ja.timed
+    for t, p, a, w in arr:
+        ja.submit(jnp.asarray(t), produced_round=p, arrival_round=a,
+                  weight=w)
+        ta.submit(torch.from_numpy(t), produced_round=p, arrival_round=a,
+                  weight=w)
+    ref, port = both((ja, ta), [], round_idx=now, bandwidths=BWS)
+    assert_same(ref, port)
+    assert [(e["produced"], e["arrival"], e["weight"]) for e in ta.state()] \
+        == [(e["produced"], e["arrival"], e["weight"]) for e in ja.state()]
+    # some entries merge, some wait, and max_age drops some
+    assert 0 < port[1].n_late and ta.pending() > 0
+    assert (port[1].n_late + ta.pending() < len(arr)) == (max_age is not None)
+
+
+@pytest.mark.parametrize("max_age", [None, 20.0])
+def test_timed_stream_matches_submit_then_drain(max_age):
+    """``merge_timed_stream`` is bitwise ``submit`` + ``aggregate([])`` in
+    the port, and equals the reference's stream."""
+    arr = timed_arrivals(7, 12)
+    old = timed_arrivals(8, 4)
+    kw = dict(staleness_lambda=0.05, max_age=max_age)
+    batch, stream = TA.make_aggregator("async", TCFG, **kw), \
+        TA.make_aggregator("async", TCFG, **kw)
+    jstream = JA.make_aggregator("async", JCFG, **kw)
+    for agg, conv in ((batch, torch.from_numpy), (stream, torch.from_numpy),
+                      (jstream, jnp.asarray)):
+        for t, p, a, w in old:       # already buffered before the merge
+            agg.submit(conv(t), produced_round=p, arrival_round=a, weight=w)
+    for t, p, a, w in arr:
+        batch.submit(torch.from_numpy(t), produced_round=p, arrival_round=a,
+                     weight=w)
+    want = batch.aggregate([], round_idx=25.0, bandwidths=BWS)
+    got = stream.merge_timed_stream(
+        ((torch.from_numpy(t), p, a, w) for t, p, a, w in arr), now=25.0,
+        bandwidths=BWS)
+    ref = jstream.merge_timed_stream(
+        ((jnp.asarray(t), p, a, w) for t, p, a, w in arr), now=25.0,
+        bandwidths=BWS)
+    assert torch.equal(got[0], want[0]) and fields(got[1]) == fields(want[1])
+    assert_same(ref, got)
+    assert [e["arrival"] for e in stream.state()] \
+        == [e["arrival"] for e in batch.state()] \
+        == [e["arrival"] for e in jstream.state()]
+    with pytest.raises(ValueError):
+        stream.merge_timed_stream(iter([(torch.from_numpy(arr[0][0]), 3.0,
+                                         3.0, 1.0)]), now=5.0)
+
+
+def test_timed_load_state_keeps_float_times():
+    ta = TA.AsyncBufferedAggregator(TCFG, staleness_lambda=0.1)
+    ta.load_state([dict(table=torch.zeros(3, 1 << 10), produced=1.25,
+                        arrival=2.5, weight=1)])
+    assert [(e["produced"], e["arrival"]) for e in ta.state()] \
+        == [(1.25, 2.5)]
+
+
+def test_event_clock_arguments_raise_as_in_the_reference():
+    for mod, cfg in ((JA, JCFG), (TA, TCFG)):
+        with pytest.raises(ValueError):
+            mod.AsyncBufferedAggregator(cfg, staleness_lambda=-1.0)
+        with pytest.raises(ValueError):
+            mod.TreeAggregator(cfg, link_bandwidth=0.0)

@@ -342,3 +342,54 @@ def test_orchestrator_on_the_card_matches_the_cpu(dev, grads_on):
     assert counts(card) == counts(cpu) and card.traffic == cpu.traffic
     assert sum(r.n_late for r in cpu.records) > 0
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3)
+
+
+@pytest.mark.parametrize("vectorized", [False, True],
+                         ids=["per-object", "vectorized"])
+@pytest.mark.parametrize("grads_on", ["card", "cpu"])
+def test_event_clock_on_the_card_matches_the_cpu(dev, grads_on, vectorized):
+    """A micro event-clock run, async with a quorum of 2 below the cohort
+    of 5 (uploads stay in flight across updates, lazy events compute
+    against their dispatch round's weights), on the card and on the CPU
+    from the same weights: every record field but the loss equal (they
+    are numpy's), losses within 1e-3.  The sketch has 2**16 columns for
+    the reason given in ``test_orchestrator_on_the_card_matches_the_cpu``.
+    """
+    from repro_torch import fed
+    from repro_torch.launch import simulate
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_decay
+    cfg = simulate.micro_cfg()
+    init = dict(L.flatten(transformer.init_params(cfg, seed=0)))
+    fs_cfg = F.FetchSGDConfig(rows=3, cols=1 << 16, k=64)
+    fed_cfg = fed.FederationConfig(
+        rounds=3, clients_per_round=5, aggregate="async", seed=3,
+        clock="event", vectorized=vectorized,
+        simtime=fed.SimTimeConfig(quorum=2, heterogeneity=(
+            fed.HeterogeneityConfig(bandwidth_median=1e5,
+                                    bandwidth_sigma=2.0))),
+        straggler=fed.StragglerModel(straggle_prob=0.25, max_delay=2))
+
+    def cpu_grads(params, batch):
+        on_cpu = L.tree_map(lambda x: x.cpu(), params)
+        loss, g = transformer.value_and_grad(
+            on_cpu, L.tree_map(lambda x: x.cpu(), batch), cfg)
+        dev_of = next(iter(batch.values())).device
+        return loss, L.tree_map(lambda x: x.to(dev_of), g)
+
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        params = L.unflatten(list(init), [x.to(device, copy=True)
+                                          for x in init.values()])
+        runs[device.type] = fed.Orchestrator(
+            cfg, fs_cfg, fed_cfg, simulate.micro_dataset(cfg), params=params,
+            lr_fn=linear_decay(0.2, 3), device=device,
+            grad_fn=cpu_grads if grads_on == "cpu" else None).run()
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def meta(res):
+        return [{k: v for k, v in vars(r).items() if k != "loss"}
+                for r in res.records]
+    assert meta(card) == meta(cpu) and card.traffic == cpu.traffic
+    assert card.extras["in_flight"] == cpu.extras["in_flight"] > 0
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3)
