@@ -32,7 +32,17 @@ In order, it
    but its loss against the same configuration at the micro model's
    width on the CPU, and reporting seconds per round, dispatch seconds
    and peak device memory;
-7. prints the kernels line, the card's name and power limit, and last
+7. checkpoints and resumes at full width (``resume``): event-clock async
+   and round-clock async, each run 4 rounds straight and 2 + 2 rounds
+   through a checkpoint in a fresh ``Orchestrator``; restore is bitwise,
+   every record field but the loss equals the straight run's, losses
+   within rtol 1e-3; checkpoint bytes, save and restore seconds;
+8. runs FetchSGD through ``run_simulation`` with telemetry
+   (``telemetry``): a JSONL stream with spans, kernel spans and a
+   sketch-health sample each round, checked against the launch counts and
+   against the same run without telemetry; the median seconds of each
+   span, s/round with and without telemetry, and a health sample's cost;
+9. prints the kernels line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -638,6 +648,305 @@ def eventsim_phase(torch, dev, smi_line: str) -> list[dict]:
     return out
 
 
+def expected_launches(recs, per_object_event: bool) -> dict[str, int]:
+    """Launches a run's records imply: 17 encodes for each client that
+    computed, 17 estimates, one momentum_error and one topk_mask for each
+    server update that carried weight."""
+    computed = sum((len(r.cohort) - r.n_dropped) if per_object_event
+                   else (r.n_fresh + r.n_straggling) for r in recs)
+    updates = sum(r.n_fresh + r.n_late > 0 for r in recs)
+    return {"encode": N_CHUNKS * computed, "estimate": N_CHUNKS * updates,
+            "momentum_error": updates, "topk_mask": updates}
+
+
+def record_meta(recs) -> list[dict]:
+    return [{k: v for k, v in vars(r).items() if k != "loss"} for r in recs]
+
+
+def resume_phase(torch, dev, smi_line: str) -> list[dict]:
+    """Checkpoint and resume at full width (gpt2s-federated, random weights
+    from seed 0, PersonaLM clients at seq 256, a 5 x 2**20 sketch,
+    k = 25,000, the eventsim phase's heterogeneity): each run 4 rounds
+    straight, then 2 rounds with a checkpoint and rounds 2-3 resumed from
+    it by a fresh ``Orchestrator``.  The card's contract: save and restore
+    are bitwise, every record field but the loss equals the straight
+    run's, losses agree within rtol 1e-3 (the encode's float atomics sum
+    in no fixed order).  The full-width pop-event run is not checkpointed:
+    its ~30,000 lazy in-flight events would each be computed for the save
+    (21 MB a table)."""
+    import os
+    import tempfile
+
+    from repro_torch import configs, fed
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.data import synthetic
+    from repro_torch.fed import checkpoint as ckpt
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_decay
+
+    cfg = configs.get_config("gpt2s-federated")
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
+                                  n_clients=64)
+    SM, Sim = fed.StragglerModel, fed.SimTimeConfig
+    runs = [
+        ("event-async", dict(
+            clock="event", aggregate="async", clients_per_round=8,
+            straggler=SM(straggle_prob=0.25),
+            simtime=Sim(quorum=4, staleness_lambda=0.05, max_age=60.0))),
+        ("round-async", dict(
+            clock="round", aggregate="async", clients_per_round=8,
+            straggler=SM(straggle_prob=0.25))),
+    ]
+    print(f"resume on {smi_line}")
+    out = []
+    for name, kw in runs:
+        def run(rounds, ckdir=None, seconds=None, save_s=None):
+            """One leg: counts set to 0 just before, checked just after."""
+            fed_cfg = fed.FederationConfig(
+                rounds=rounds, seed=0, checkpoint_dir=ckdir,
+                checkpoint_every=2 if ckdir else 0, **kw)
+            orch = fed.Orchestrator(
+                cfg, fs_cfg, fed_cfg, dataset,
+                params=transformer.init_params(cfg, 0, dev), device=dev,
+                lr_fn=linear_decay(0.2, 4))
+            if save_s is not None:
+                inner = orch._save
+
+                def timed_save(r, inner=inner):
+                    t0 = time.perf_counter()
+                    inner(r)
+                    save_s.append(time.perf_counter() - t0)
+                orch._save = timed_save
+            clock = [0.0]
+
+            def progress(rec):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                if seconds is not None:
+                    seconds.append(now - clock[0])
+                clock[0] = now
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            clock[0] = time.perf_counter()
+            res = orch.run(progress=progress)
+            counts = ops.launch_counts()
+            want = expected_launches(res.records, kw["clock"] == "event")
+            check(counts == want, f"{name}, rounds {orch.start_round}-"
+                  f"{rounds - 1}: launches {counts} = 17 encodes a client "
+                  f"computed, 17 estimates, 1 momentum_error and 1 "
+                  f"topk_mask an update")
+            return orch, res
+
+        seconds: dict[str, list] = {"straight": [], "first": [],
+                                    "resumed": []}
+        save_s: list[float] = []
+        _, full = run(4, seconds=seconds["straight"])
+        del _
+        with tempfile.TemporaryDirectory() as d:
+            first_orch, first = run(2, d, seconds["first"], save_s)
+            files = sorted(os.listdir(d))
+            ck_bytes = sum(os.path.getsize(os.path.join(d, f))
+                           for f in files)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck = ckpt.restore(d, first_orch.params, first_orch.opt_state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            saved = [x for _, x in layout_lib.flatten(first_orch.params)] + [
+                first_orch.opt_state.momentum_sketch,
+                first_orch.opt_state.error_sketch]
+            got = [x for _, x in layout_lib.flatten(ck.params)] + [
+                ck.opt_state.momentum_sketch, ck.opt_state.error_sketch]
+            late = (first_orch.aggregator.state()
+                    if kw["aggregate"] == "async" else [])
+            saved += [e["table"] for e in late]
+            got += [e["table"] for e in ck.late_buffer]
+            events = (first_orch._queue.state() if kw["clock"] == "event"
+                      else [])
+            saved += [e.table for e in events]
+            got += [e.table for e in (ck.simtime or {"events": []})["events"]]
+            check(len(got) == len(saved)
+                  and all(g.device == s.device and torch.equal(g, s)
+                          for g, s in zip(got, saved))
+                  and ck.opt_state.step == first_orch.opt_state.step,
+                  f"{name}: restore is bitwise on the card: "
+                  f"{len(saved)} tensors ({len(late)} late tables, "
+                  f"{len(events)} in-flight event tables), step "
+                  f"{ck.opt_state.step}")
+            check(len(late) + len(events) > 0,
+                  f"{name}: the checkpoint holds tables still to merge")
+            if kw["clock"] == "event":
+                check([e.meta() for e in ck.simtime["events"]]
+                      == [e.meta() for e in events]
+                      and ck.simtime["now"] == first_orch._now,
+                      f"{name}: event queue and virtual clock restored")
+            del ck, first_orch, saved, got, late, events
+            resumed_orch, resumed = run(4, d, seconds["resumed"])
+            check(resumed_orch.start_round == 2
+                  and resumed.extras["start_round"] == 2,
+                  f"{name}: the fresh Orchestrator resumes at round 2")
+            check(len(os.listdir(d)) <= 4, f"{name}: at most 2 checkpoints "
+                  f"on disk")
+            del resumed_orch
+        check(record_meta(first.records) == record_meta(full.records[:2])
+              and record_meta(resumed.records)
+              == record_meta(full.records[2:]),
+              f"{name}: every record field but the loss equals the straight "
+              f"run's (cohorts, fates, counts, bytes, virtual times)")
+        losses = first.losses + resumed.losses
+        check(all(math.isclose(a, b, rel_tol=1e-3)
+                  for a, b in zip(losses, full.losses)),
+              f"{name}: losses {losses} vs straight {full.losses} "
+              f"(rtol 1e-3)")
+        print(f"{name}: checkpoint {ck_bytes} bytes ({files}); save s "
+              f"{save_s}; restore s {restore_s}; s/round straight "
+              f"{seconds['straight']}, first {seconds['first']}, resumed "
+              f"{seconds['resumed']} ({smi_line})")
+        out.append(dict(run=name, checkpoint_bytes=ck_bytes,
+                        checkpoint_files=files, save_seconds=save_s,
+                        restore_seconds=restore_s, seconds=seconds,
+                        losses_straight=full.losses, losses_resumed=losses,
+                        pending_late=resumed.extras["pending_late"],
+                        in_flight=resumed.extras["in_flight"]))
+        del full, first, resumed
+        torch.cuda.empty_cache()
+    return out
+
+
+def telemetry_phase(torch, dev, smi_line: str) -> dict:
+    """FetchSGD flat with dropout 0.25, 8 clients a round, 3 rounds, at full
+    width through ``run_simulation``, four times in turn: without
+    telemetry, with (JSONL and memory sinks, tracing, the kernel dispatch
+    traced, a sketch-health sample each round) twice, and without.  Each
+    instrumented stream validates, its kernel spans count the launches,
+    and every run's records but the loss are the first run's."""
+    import statistics
+    import tempfile
+
+    from repro_torch import configs, fed, obs
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    cfg = configs.get_config("gpt2s-federated")
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
+                                  n_clients=64)
+    rounds, cpr = 3, 8
+    fed_cfg = fed.FederationConfig(
+        rounds=rounds, clients_per_round=cpr, aggregate="flat",
+        straggler=fed.StragglerModel(dropout_prob=0.25))
+    print(f"telemetry on {smi_line}")
+    health_s: list[float] = []
+    emit_health = fed.Orchestrator._emit_health
+
+    def timed_health(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emit_health(self, *args)
+        torch.cuda.synchronize()
+        health_s.append(time.perf_counter() - t0)
+
+    def sim(path=None):
+        """One run, with telemetry into ``path`` when given: (result,
+        s/round, events, launches)."""
+        seconds: list[float] = []
+        clock = [0.0]
+
+        def progress(r, loss):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seconds.append(now - clock[0])
+            clock[0] = now
+        mem, tele = obs.MemorySink(), None
+        if path:
+            tele = obs.Telemetry([obs.JsonlSink(path), mem], trace=True)
+            tele.emit_meta(run="chip_smoke", phase="telemetry")
+            ops.set_telemetry(tele)
+            fed.Orchestrator._emit_health = timed_health
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+        try:
+            res = simulate.run_simulation(
+                cfg, method="fetchsgd", rounds=rounds, clients_per_round=cpr,
+                fs_cfg=fs_cfg, dataset=dataset, fed_cfg=fed_cfg, device=dev,
+                progress=progress, telemetry=tele, health_every=1)
+            counts = ops.launch_counts()
+        finally:
+            if tele:
+                fed.Orchestrator._emit_health = emit_health
+                ops.set_telemetry(None)
+                tele.close()
+        return res, seconds, mem.events, counts
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = [str(Path(d) / f"run{i}.jsonl") for i in range(2)]
+        runs = [sim(p) for p in (None, *paths, None)]
+        for p in paths:
+            check(obs.validate_jsonl(p) == [], f"the JSONL stream validates "
+                  f"({len(obs.parse_jsonl(p))} events)")
+        (OUT / "chip_smoke_telemetry.jsonl").write_text(
+            Path(paths[0]).read_text())
+    base = runs[0][0]
+    spans: list[dict] = []
+    for res, _, events, counts in runs[1:3]:
+        recs = res.extras["fed_records"]
+        rounds_ev = [e for e in events if e["type"] == "round"]
+        health = [e for e in events if e["type"] == "sketch_health"]
+        check([e["round"] for e in rounds_ev] == list(range(rounds))
+              and [e["round"] for e in health] == list(range(rounds)),
+              "one round event and one sketch_health event a round")
+        check(all(math.isfinite(h["recovery_rel_err"])
+                  and 0.0 <= h["heavy_hitter_overlap"] <= 1.0
+                  for h in health),
+              f"recovery_rel_err finite and heavy_hitter_overlap in [0, 1]: "
+              f"{[(h['recovery_rel_err'], h['heavy_hitter_overlap']) for h in health]}")
+        run_spans = [e for e in events if e["type"] == "span"]
+        spans += run_spans
+        by_kernel = {k: sum(e["name"].startswith(f"kernel.{k}[cuda:")
+                            for e in run_spans) for k in counts}
+        want = expected_launches(recs, False)
+        want["estimate"] += N_CHUNKS * len(health)
+        check(by_kernel == counts == want,
+              f"kernel spans {by_kernel} = launches {counts} = the records' "
+              f"plus {N_CHUNKS} estimates for each of the {len(health)} "
+              f"health samples")
+    for res, *_ in runs[1:]:
+        check(record_meta(res.extras["fed_records"])
+              == record_meta(base.extras["fed_records"])
+              and res.traffic == base.traffic,
+              "every record field but the loss equals the first run's "
+              "(without telemetry)")
+        check(all(math.isfinite(x) for x in res.losses), "every loss finite")
+    medians: dict = {}
+    for e in spans:
+        medians.setdefault(e["name"], []).append(e["dur_s"])
+    medians = {k: dict(n=len(v), median_s=statistics.median(v),
+                       max_s=max(v)) for k, v in sorted(medians.items())}
+    for k, v in medians.items():
+        print(f"  span {k}: n={v['n']} median {v['median_s']:.6f} s, max "
+              f"{v['max_s']:.6f} s")
+    seconds = [r[1] for r in runs]
+    print(f"telemetry: s/round without {seconds[0]}, with {seconds[1]}, "
+          f"with {seconds[2]}, without {seconds[3]}; health sample s "
+          f"{health_s} ({smi_line})")
+    last_health = [e for e in runs[2][2] if e["type"] == "sketch_health"]
+    return dict(rounds=rounds, clients_per_round=cpr, spans=medians,
+                order=["without", "with", "with", "without"],
+                seconds=seconds, health_seconds=health_s,
+                launches=runs[1][3], losses=[r[0].losses for r in runs],
+                health=[{k: h[k] for k in ("round", "recovery_rel_err",
+                                           "heavy_hitter_overlap",
+                                           "error_sketch_norm",
+                                           "momentum_sketch_norm")}
+                        for h in last_health])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -681,6 +990,14 @@ def main() -> int:
     eventsim = eventsim_phase(torch, dev, smi)
     (OUT / "chip_smoke_eventsim.json").write_text(json.dumps(
         {"device": smi, "runs": eventsim}, indent=1))
+    print("resume: checkpoints and resume at full width")
+    resume = resume_phase(torch, dev, smi)
+    (OUT / "chip_smoke_resume.json").write_text(json.dumps(
+        {"device": smi, "runs": resume}, indent=1))
+    print("telemetry: an instrumented simulation at full width")
+    telemetry = telemetry_phase(torch, dev, smi)
+    (OUT / "chip_smoke_telemetry.json").write_text(json.dumps(
+        {"device": smi, **telemetry}, indent=1))
 
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",

@@ -39,6 +39,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import fetchsgd as F
 
 
@@ -119,19 +120,41 @@ class Aggregator:
     """Base: merge a round's client sketch tables into one mean table.
 
     Tables are (rows, cols) float32 tensors on ``device``, where the empty
-    merge's zero table is made.
+    merge's zero table is made.  ``telemetry`` (``repro_torch.obs``) gets
+    the reference's ``agg.*`` counters, gauges and histograms.
     """
 
     name = "base"
 
-    def __init__(self, cfg: F.FetchSGDConfig, device=None):
+    def __init__(self, cfg: F.FetchSGDConfig, device=None, telemetry=None):
         self.cfg = cfg
         self.device = torch.device("cpu" if device is None else device)
         self.table_bytes = F.upload_bytes(cfg)
+        self.tele = telemetry if telemetry is not None else obs.NOOP
 
     def _zeros(self) -> torch.Tensor:
         return torch.zeros(self.cfg.rows, self.cfg.cols, dtype=torch.float32,
                            device=self.device)
+
+    def _observe(self, stats: AggregationStats) -> AggregationStats:
+        """Record one merge's stats (no-op unless telemetry is live)."""
+        tele = self.tele
+        if tele.enabled:
+            tele.counter("agg.merges").inc()
+            tele.counter("agg.tables_merged").inc(stats.n_fresh
+                                                  + stats.n_late)
+            tele.counter("agg.bytes_on_wire").inc(stats.upload_bytes)
+            for lv in stats.levels:
+                tele.counter(f"agg.level{lv.level}.bytes").inc(
+                    lv.bytes_on_wire)
+                tele.counter(f"agg.level{lv.level}.messages").inc(
+                    lv.n_messages)
+            tele.gauge("agg.root_ingress_tables").set(
+                stats.root_ingress_tables)
+            if stats.critical_path_s:
+                tele.histogram("agg.critical_path_s").observe(
+                    stats.critical_path_s)
+        return stats
 
     def aggregate(self, tables: Sequence[torch.Tensor], *,
                   weights: Sequence[float] | None = None,
@@ -192,9 +215,9 @@ class FlatAggregator(Aggregator):
 
     def _finish(self, acc, total_w, n, bandwidths):
         table = acc / total_w if total_w > 0 else acc
-        return table, AggregationStats(
+        return table, self._observe(AggregationStats(
             policy=self.name, n_fresh=n, n_late=0, total_weight=total_w,
-            levels=_leaf_level(n, self.table_bytes, bandwidths))
+            levels=_leaf_level(n, self.table_bytes, bandwidths)))
 
 
 class TreeAggregator(Aggregator):
@@ -208,8 +231,9 @@ class TreeAggregator(Aggregator):
     name = "tree"
 
     def __init__(self, cfg: F.FetchSGDConfig, fanout: int = 4,
-                 link_bandwidth: float | None = None, device=None):
-        super().__init__(cfg, device)
+                 link_bandwidth: float | None = None, device=None,
+                 telemetry=None):
+        super().__init__(cfg, device, telemetry)
         if fanout < 2:
             raise ValueError(f"fanout must be >= 2, got {fanout}")
         if link_bandwidth is not None and link_bandwidth <= 0:
@@ -263,11 +287,11 @@ class TreeAggregator(Aggregator):
 
     def _finish(self, acc, total_w, n, bandwidths):
         table = acc / total_w if total_w > 0 else acc
-        return table, AggregationStats(
+        return table, self._observe(AggregationStats(
             policy=self.name, n_fresh=n, n_late=0, total_weight=total_w,
             levels=tree_levels(n, self.fanout, self.table_bytes,
                                leaf_bandwidths=bandwidths,
-                               link_bandwidth=self.link_bandwidth))
+                               link_bandwidth=self.link_bandwidth)))
 
 
 class AsyncBufferedAggregator(Aggregator):
@@ -293,8 +317,9 @@ class AsyncBufferedAggregator(Aggregator):
     def __init__(self, cfg: F.FetchSGDConfig, discount: float = 0.9,
                  max_staleness: int = 8,
                  staleness_lambda: float | None = None,
-                 max_age: float | None = None, device=None):
-        super().__init__(cfg, device)
+                 max_age: float | None = None, device=None,
+                 telemetry=None):
+        super().__init__(cfg, device, telemetry)
         if not 0.0 < discount <= 1.0:
             raise ValueError(f"discount must be in (0, 1], got {discount}")
         if staleness_lambda is not None and staleness_lambda < 0:
@@ -358,12 +383,23 @@ class AsyncBufferedAggregator(Aggregator):
             return
         s = now - e["produced"]
         if self._too_stale(s):
+            if self.tele.enabled:
+                self.tele.counter("agg.async.dropped_stale").inc()
             return
         w = e["weight"] * self._discount_for(s)
         late["acc"] = late["acc"] + w * e["table"]
         late["w"] += w
         late["n"] += 1
         late["max_s"] = max(late["max_s"], s)
+        if self.tele.enabled:
+            self.tele.histogram("agg.async.staleness_age").observe(s)
+
+    def _drained(self, keep: list, late: dict) -> None:
+        """End a drain: the buffer keeps the entries still in flight."""
+        self._buffer = keep
+        if self.tele.enabled:
+            self.tele.counter("agg.async.late_merged").inc(late["n"])
+            self.tele.gauge("agg.async.buffer_depth").set(len(keep))
 
     def drain(self, round_idx) -> tuple[torch.Tensor, float, int, float]:
         """Pop arrived entries: (discounted weighted sum, weight, n, max_s).
@@ -375,7 +411,7 @@ class AsyncBufferedAggregator(Aggregator):
         late, keep = self._new_late(), []
         for e in self._buffer:
             self._take(late, e, round_idx, keep)
-        self._buffer = keep
+        self._drained(keep, late)
         return late["acc"], late["w"], late["n"], late["max_s"]
 
     def aggregate(self, tables, *, weights=None, round_idx=0,
@@ -394,6 +430,10 @@ class AsyncBufferedAggregator(Aggregator):
         """
         late = self.drain(round_idx)
         acc, n, fresh_w = self._fold(pairs)
+        if self.tele.enabled:
+            # the per-object path drains after this round's submits, so its
+            # buffer-depth gauge counts them: so does this one
+            self.tele.gauge("agg.async.buffer_depth").set(len(self._buffer))
         return self._finish(acc, fresh_w, n, *late, bandwidths)
 
     def merge_timed_stream(self, arrivals, *, now, bandwidths=None):
@@ -416,7 +456,7 @@ class AsyncBufferedAggregator(Aggregator):
             self._take(late, dict(table=table, produced=produced,
                                   arrival=arrival, weight=float(weight)),
                        now, keep)
-        self._buffer = keep
+        self._drained(keep, late)
         # the tail of aggregate([]) op for op: an empty fresh fold, 0 + the
         # late weight, zeros + the late sum
         return self._finish(self._zeros(), 0, 0, late["acc"], late["w"],
@@ -427,10 +467,10 @@ class AsyncBufferedAggregator(Aggregator):
         total_w = fresh_w + late_w
         acc = acc + late_sum if n_late else acc
         table = acc / total_w if total_w > 0 else acc
-        return table, AggregationStats(
+        return table, self._observe(AggregationStats(
             policy=self.name, n_fresh=n, n_late=n_late,
             total_weight=total_w, max_staleness=max_s,
-            levels=_leaf_level(n + n_late, self.table_bytes, bandwidths))
+            levels=_leaf_level(n + n_late, self.table_bytes, bandwidths)))
 
 
 def make_aggregator(policy: str, cfg: F.FetchSGDConfig, *, fanout: int = 4,
@@ -438,15 +478,17 @@ def make_aggregator(policy: str, cfg: F.FetchSGDConfig, *, fanout: int = 4,
                     staleness_lambda: float | None = None,
                     max_age: float | None = None,
                     link_bandwidth: float | None = None,
-                    device=None) -> Aggregator:
+                    device=None, telemetry=None) -> Aggregator:
     if policy == "flat":
-        return FlatAggregator(cfg, device)
+        return FlatAggregator(cfg, device, telemetry)
     if policy == "tree":
         return TreeAggregator(cfg, fanout=fanout,
-                              link_bandwidth=link_bandwidth, device=device)
+                              link_bandwidth=link_bandwidth, device=device,
+                              telemetry=telemetry)
     if policy == "async":
         return AsyncBufferedAggregator(cfg, discount=discount,
                                        max_staleness=max_staleness,
                                        staleness_lambda=staleness_lambda,
-                                       max_age=max_age, device=device)
+                                       max_age=max_age, device=device,
+                                       telemetry=telemetry)
     raise ValueError(f"unknown aggregation policy {policy!r}")

@@ -5,15 +5,46 @@ A CUDA tensor launches the hand-written kernel (``count_sketch`` /
 takes the plain PyTorch twin in ``ref``.  There is no implementation knob
 and no fallback from the card to the plain version.  (The reference's
 ``--sketch-impl`` and its TPU VMEM size gates have no counterpart here.)
+
+Telemetry: ``set_telemetry(tele)`` arms wall-clock spans around each
+dispatch when ``tele`` traces: ``kernel.<name>[cuda:<path>]`` on the card
+(the encode's path is ``binned`` or ``one_pass``, the others'
+``sm_90a``) and ``kernel.<name>[torch:eager]`` on the CPU.  On the card
+each span starts on an idle device and waits for its output
+(``Span.sync``), so it times the kernel and its launch; with tracing off
+the dispatch adds nothing, no device sync included.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+
 from . import count_sketch as cuda_cs
 from . import ref
 from . import server_step as cuda_ss
+
+
+_TELE = obs.NOOP
+
+
+def set_telemetry(tele) -> None:
+    """Route kernel-dispatch spans to ``tele`` (None resets to no-op)."""
+    global _TELE
+    _TELE = tele if tele is not None else obs.NOOP
+
+
+def _span(name: str, operand: torch.Tensor, path: str = "sm_90a"):
+    """A live span only when tracing is on.  On the card it first waits
+    for the work already queued (a client's backward pass, say), so that
+    the span times this kernel and not what ran before it."""
+    if not _TELE.trace_enabled:
+        return obs.NULL_SPAN
+    if operand.is_cuda:
+        torch.cuda.synchronize(operand.device)
+        return _TELE.span(f"kernel.{name}[cuda:{path}]")
+    return _TELE.span(f"kernel.{name}[torch:eager]")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -28,30 +59,41 @@ def sketch_encode(values: torch.Tensor, offset: int, rows: int, cols: int,
                   key: int = 0, *, out: torch.Tensor | None = None
                   ) -> torch.Tensor:
     """(rows, cols) sketch of a chunk, added into ``out`` when given."""
-    fn = cuda_cs.sketch_encode if _on_cuda(values) else ref.sketch_encode
-    return fn(values, offset, rows, cols, key, out=out)
+    on_cuda = _on_cuda(values)
+    fn = cuda_cs.sketch_encode if on_cuda else ref.sketch_encode
+    # the path only names the span: read the bin geometry only when tracing
+    binned = (on_cuda and _TELE.trace_enabled
+              and cuda_cs.bins().use(values.numel(), rows, cols))
+    with _span("encode", values, "binned" if binned else "one_pass") as sp:
+        return sp.sync(fn(values, offset, rows, cols, key, out=out))
 
 
 def sketch_estimate(table: torch.Tensor, offset: int, n: int,
                     key: int = 0) -> torch.Tensor:
-    fn = cuda_cs.sketch_estimate if _on_cuda(table) else ref.sketch_estimate
-    return fn(table, offset, n, key)
+    on_cuda = _on_cuda(table)
+    fn = cuda_cs.sketch_estimate if on_cuda else ref.sketch_estimate
+    with _span("estimate", table) as sp:
+        return sp.sync(fn(table, offset, n, key))
 
 
 def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,
                    lr: torch.Tensor, momentum: float
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    fn = cuda_ss.momentum_error if _on_cuda(agg) else ref.momentum_error
-    return fn(agg, su, se, lr, momentum)
+    on_cuda = _on_cuda(agg)
+    fn = cuda_ss.momentum_error if on_cuda else ref.momentum_error
+    with _span("momentum_error", agg) as sp:
+        return sp.sync(fn(agg, su, se, lr, momentum))
 
 
 def topk_mask(su: torch.Tensor, se: torch.Tensor, ids: torch.Tensor,
               values: torch.Tensor, key: int = 0, *, error_mode: str = "zero",
               momentum_masking: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    fn = cuda_ss.topk_mask if _on_cuda(su) else ref.topk_mask
-    return fn(su, se, ids, values, key, error_mode=error_mode,
-              momentum_masking=momentum_masking)
+    on_cuda = _on_cuda(su)
+    fn = cuda_ss.topk_mask if on_cuda else ref.topk_mask
+    with _span("topk_mask", su) as sp:
+        return sp.sync(fn(su, se, ids, values, key, error_mode=error_mode,
+                          momentum_masking=momentum_masking))
 
 
 def launch_counts() -> dict[str, int]:

@@ -16,6 +16,13 @@ baselines keep their own loops.  Runs on the card unless
         --clock event --aggregate async --rounds 5 --bw-sigma 2.0
     PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
         --clock event --population 100000 --rounds 3
+    PYTHONPATH=src python -m repro_torch.launch.simulate --device cpu \\
+        --aggregate async --straggle-prob 0.5 --rounds 6 \\
+        --checkpoint-dir ckpt --checkpoint-every 3 --metrics run.jsonl --trace
+
+The same command again resumes after the newest checkpoint in
+``--checkpoint-dir``; ``python -m repro_torch.obs run.jsonl`` (or the
+reference's ``python -m repro.obs``) validates the telemetry stream.
 """
 
 from __future__ import annotations
@@ -28,13 +35,14 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch import configs, fed, resolve_device
+from repro_torch import configs, fed, obs, resolve_device
 from repro_torch.baselines import fedavg, local_topk, uncompressed
 from repro_torch.core import compression, fetchsgd as F
 from repro_torch.core import layout as layout_lib
 from repro_torch.core import topk as TK
 from repro_torch.core.layout import tree_map
 from repro_torch.data import federated, synthetic
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer
 from repro_torch.models.config import reduce_for_smoke
 from repro_torch.optim import triangular
@@ -97,13 +105,15 @@ def run_simulation(cfg, *, method: str = "fetchsgd", rounds: int = 30,
                    dataset=None, seed: int = 0, aggregate: str = "flat",
                    fed_cfg: fed.FederationConfig | None = None,
                    params: dict | None = None, device=None,
-                   progress: Callable[[int, float], None] | None = None
-                   ) -> SimResult:
+                   progress: Callable[[int, float], None] | None = None,
+                   telemetry=None, health_every: int = 1) -> SimResult:
     """Run ``method`` for ``rounds`` rounds; returns losses and traffic.
 
     ``params`` (a tree on ``device``, which the run may update in place)
     replaces the initialisation from ``seed``; ``progress(round, loss)`` is
-    called after every round.
+    called after every round.  FetchSGD's orchestrator reports to
+    ``telemetry`` (``repro_torch.obs``), with a sketch-health sample every
+    ``health_every`` rounds.
     """
     device = resolve_device(device)
     dataset = dataset or synthetic.ClassShardLM(
@@ -139,7 +149,9 @@ def run_simulation(cfg, *, method: str = "fetchsgd", rounds: int = 30,
         if fed_cfg.rounds != rounds:   # fed_cfg wins; keep the lr schedule
             lr_fn = triangular(peak_lr, fed_cfg.rounds)   # aligned with it
         res = fed.Orchestrator(cfg, fs_cfg, fed_cfg, dataset, params=params,
-                               lr_fn=lr_fn, grad_fn=gf, device=device).run(
+                               lr_fn=lr_fn, grad_fn=gf, device=device,
+                               telemetry=telemetry,
+                               health_every=health_every).run(
             progress=progress and (lambda rec: progress(
                 rec.round_idx, rec.loss)))
         extras["fs_cfg"] = fs_cfg
@@ -264,6 +276,8 @@ def main(argv=None, log=print):
     ap.add_argument("--straggle-prob", type=float, default=0.0)
     ap.add_argument("--max-delay", type=int, default=2)
     ap.add_argument("--staleness-discount", type=float, default=0.9)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--peak-lr", type=float, default=0.2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--weight-by", default="uniform",
@@ -291,6 +305,10 @@ def main(argv=None, log=print):
                     help="event: availability window period (0 = always up)")
     ap.add_argument("--avail-duty-min", type=float, default=1.0)
     ap.add_argument("--avail-duty-max", type=float, default=1.0)
+    obs.add_cli_flags(ap)   # --metrics PATH.jsonl / --trace / --obs-summary
+    ap.add_argument("--health-every", type=int, default=1,
+                    help="emit sketch-health diagnostics every N rounds "
+                         "(0 = never; only active with --metrics)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -304,6 +322,9 @@ def main(argv=None, log=print):
     cfg = micro_cfg()
     dataset = micro_dataset(cfg, seed=args.seed,
                             n_clients=args.population or 64)
+    telemetry = obs.from_args(args, run="simulate", method=args.method,
+                              aggregate=args.aggregate, clock=args.clock,
+                              seed=args.seed)
     # built for both clocks: the round clock reads the heterogeneity
     # profiles too (weight_by=profile, vectorized column weights)
     simtime = fed.SimTimeConfig(
@@ -327,15 +348,31 @@ def main(argv=None, log=print):
                                      straggle_prob=args.straggle_prob,
                                      max_delay=args.max_delay),
         clock=args.clock, simtime=simtime, weight_by=args.weight_by,
-        seed=args.seed, vectorized=args.population is not None)
-    res = run_simulation(cfg, method=args.method, rounds=args.rounds,
-                         clients_per_round=args.clients_per_round,
-                         peak_lr=args.peak_lr, dataset=dataset,
-                         seed=args.seed, aggregate=args.aggregate,
-                         fed_cfg=fed_cfg if args.method == "fetchsgd"
-                         else None, device=args.device)
+        seed=args.seed, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        vectorized=args.population is not None)
+    if telemetry.trace_enabled:
+        kernel_ops.set_telemetry(telemetry)
+    try:
+        res = run_simulation(cfg, method=args.method, rounds=args.rounds,
+                             clients_per_round=args.clients_per_round,
+                             peak_lr=args.peak_lr, dataset=dataset,
+                             seed=args.seed, aggregate=args.aggregate,
+                             fed_cfg=fed_cfg if args.method == "fetchsgd"
+                             else None, device=args.device,
+                             telemetry=telemetry,
+                             health_every=args.health_every)
+    finally:
+        kernel_ops.set_telemetry(None)
+        telemetry.close()
+    if args.metrics:
+        log(f"telemetry: {args.metrics}")
     log(f"method={args.method} aggregate={args.aggregate} "
         f"clock={args.clock}")
+    if not res.losses:
+        log(f"nothing to do: checkpoint in {args.checkpoint_dir} already "
+            f"covers all {args.rounds} rounds")
+        return res
     records = res.extras.get("fed_records") or [None] * len(res.losses)
     for r, (loss, rec) in enumerate(zip(res.losses, records)):
         detail = (f"  fresh={rec.n_fresh} late={rec.n_late} "

@@ -393,3 +393,121 @@ def test_event_clock_on_the_card_matches_the_cpu(dev, grads_on, vectorized):
     assert meta(card) == meta(cpu) and card.traffic == cpu.traffic
     assert card.extras["in_flight"] == cpu.extras["in_flight"] > 0
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-3)
+
+
+def test_cpu_checkpoint_restores_onto_the_card_bitwise(dev, tmp_path):
+    """A checkpoint written from CPU tensors restores onto the card (the
+    templates' device), every tensor bitwise equal."""
+    from repro_torch import fed
+    from repro_torch.fed import checkpoint as ckpt
+    gen = torch.Generator().manual_seed(0)
+    cfg = F.FetchSGDConfig(rows=3, cols=1024, k=8)
+    params = {"b": torch.randn(5, generator=gen),
+              "a": {"w": torch.randn(4, 3, generator=gen)}}
+    tabs = [torch.randn(3, 1024, generator=gen) for _ in range(4)]
+    state = F.FetchSGDState(momentum_sketch=tabs[0], error_sketch=tabs[1],
+                            step=5)
+    ev = fed.Event(time=2.5, round_produced=1, slot=0, client=3,
+                   produced=1.0, weight=0.5, loss=0.25, table=tabs[3])
+    ckpt.save(str(tmp_path), params, state, 4,
+              late_buffer=[dict(table=tabs[2], produced=1, arrival=3,
+                                weight=1.0)],
+              simtime={"now": 2.0, "events": [ev]})
+    ck = ckpt.restore(str(tmp_path),
+                      L.tree_map(lambda x: torch.zeros_like(x, device=dev),
+                                 params), F.init_state(cfg, dev))
+    got = [x for _, x in L.flatten(ck.params)] + [
+        ck.opt_state.momentum_sketch, ck.opt_state.error_sketch,
+        ck.late_buffer[0]["table"], ck.simtime["events"][0].table]
+    want = [x for _, x in L.flatten(params)] + tabs
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    assert ck.opt_state.step == 5 and ck.round_idx == 4
+
+
+def test_span_sync_waits_for_the_card(dev):
+    """``Span.sync`` on a CUDA tensor ends the span after the card has run
+    the work queued before it: here a ~100 ms device sleep."""
+    from repro_torch import obs
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    x = torch.ones(4, device=dev)
+    torch.cuda.synchronize()
+    with tele.span("synced") as sp:
+        torch.cuda._sleep(200_000_000)       # clock cycles
+        sp.sync({"out": [x + 1]})
+    assert torch.cuda.current_stream().query()
+    torch.cuda._sleep(200_000_000)
+    with tele.span("unsynced"):
+        pass
+    unsynced_done = torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    durs = {e["name"]: e["dur_s"] for e in sink.events}
+    assert durs["synced"] > 0.03 > durs["unsynced"] and not unsynced_done
+
+
+def test_recovery_error_on_the_card_matches_the_cpu(dev):
+    """``sketch_health.recovery_error`` on the card (estimate kernel,
+    ``torch.topk`` on the card) against the CPU on the same table: the
+    estimates are exact, so the ids agree and the error to rounding."""
+    from repro_torch.obs import sketch_health as sh
+    gen = torch.Generator().manual_seed(1)
+    shapes = {"a": (40, 50), "b": (1000,)}
+    grads = {k: torch.randn(s, generator=gen) * 0.01
+             for k, s in shapes.items()}
+    grads["b"][torch.randperm(1000, generator=gen)[:64]] += 3.0
+    cfg = F.FetchSGDConfig(rows=5, cols=4096, k=64)
+    lay = L.build_layout(grads)
+    table = F.sketch_grads(grads, lay, cfg)
+    table += torch.randn(table.shape, generator=gen) * 1e-3
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        g = L.tree_map(lambda x: x.to(d), grads)
+        out[d.type] = sh.recovery_error(table.to(d), sh.flatten_dense(g, lay),
+                                        lay, cfg)
+    assert out["cuda"]["heavy_hitter_overlap"] \
+        == out["cpu"]["heavy_hitter_overlap"] > 0.5
+    np.testing.assert_allclose(out["cuda"]["recovery_rel_err"],
+                               out["cpu"]["recovery_rel_err"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("clock", ["round", "event"])
+def test_resume_on_the_card_follows_the_contract(dev, tmp_path, clock):
+    """A micro async run on the card, checkpointed after round 1 and
+    resumed in a fresh orchestrator: every record field but the loss
+    equals the uninterrupted card run's, losses within 1e-3 (the encode's
+    atomics sum in no fixed order), and telemetry on the resumed run
+    changes none of it.  2**16 columns for the reason given in
+    ``test_orchestrator_on_the_card_matches_the_cpu``."""
+    from repro_torch import fed, obs
+    from repro_torch.launch import simulate
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_decay
+    cfg = simulate.micro_cfg()
+    init = dict(L.flatten(transformer.init_params(cfg, seed=0)))
+    fs_cfg = F.FetchSGDConfig(rows=3, cols=1 << 16, k=64)
+
+    def run(rounds, ckdir=None, tele=None):
+        fed_cfg = fed.FederationConfig(
+            rounds=rounds, clients_per_round=5, aggregate="async", seed=3,
+            clock=clock, simtime=fed.SimTimeConfig(quorum=2),
+            straggler=fed.StragglerModel(straggle_prob=0.5, max_delay=2),
+            checkpoint_dir=ckdir, checkpoint_every=2)
+        params = L.unflatten(list(init), [x.to(dev, copy=True)
+                                          for x in init.values()])
+        return fed.Orchestrator(cfg, fs_cfg, fed_cfg,
+                                simulate.micro_dataset(cfg), params=params,
+                                lr_fn=linear_decay(0.2, 4), device=dev,
+                                telemetry=tele).run()
+    full = run(4)
+    run(2, str(tmp_path))
+    sink = obs.MemorySink()
+    resumed = run(4, str(tmp_path), obs.Telemetry([sink], trace=True))
+    assert resumed.extras["start_round"] == 2
+    meta = [{k: v for k, v in vars(r).items() if k != "loss"}
+            for r in resumed.records]
+    assert meta == [{k: v for k, v in vars(r).items() if k != "loss"}
+                    for r in full.records[2:]]
+    np.testing.assert_allclose(resumed.losses, full.losses[2:], rtol=1e-3)
+    assert [e["round"] for e in sink.events if e["type"] == "round"] \
+        == [2, 3]

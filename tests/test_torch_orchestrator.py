@@ -146,12 +146,6 @@ def test_loss_falls_on_the_micro_run():
     assert min(res.losses) < 4.9
 
 
-@pytest.mark.parametrize("kw,queue", [(dict(checkpoint_dir="ckpt"), "5")])
-def test_unported_options_raise(kw, queue):
-    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
-        tfed.FederationConfig(**kw)
-
-
 @pytest.mark.parametrize("cls,kw", [
     ("SimTimeConfig", dict(quorum=0)),
     ("SimTimeConfig", dict(staleness_lambda=-0.5)),
