@@ -42,8 +42,17 @@ In order, it
    sketch-health sample each round, checked against the launch counts and
    against the same run without telemetry; the median seconds of each
    span, s/round with and without telemetry, and a health sample's cost;
-9. prints the kernels line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+9. serves the dense zoo at full width (``serve``): batch 2, a prompt of
+   64 and 32 greedy tokens through ``repro_torch.launch.serve_lm.serve``
+   for gpt2s-federated, internlm2-1.8b, qwen3-0.6b and glm4-9b, from
+   torch-initialised random weights, each checked against a fresh
+   prefill of the same sequence, with parameters, KV-cache bytes,
+   prefill seconds, decode ms/token beside its HBM bound, peak memory and
+   a profiled decode step; the ring buffer of qwen3-0.6b (window 32, a
+   prompt of 48) against a big cache; and 2 rounds of FetchSGD on
+   qwen3-0.6b (55 chunks, every kernel's launches counted);
+10. prints the kernels line, the card's name and power limit, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory without the
@@ -947,6 +956,227 @@ def telemetry_phase(torch, dev, smi_line: str) -> dict:
                         for h in last_health])
 
 
+SERVE_ARCHS = ("gpt2s-federated", "internlm2-1.8b", "qwen3-0.6b", "glm4-9b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 64, 32
+# A decode step attends over the bfloat16 cache, a prefill over float32 k
+# and v: on the CPU the last decode step's logits and a fresh prefill's
+# differed by at most 5.4e-3 of the largest logit (5 smoke archs x 3
+# seeds, tests/test_torch_serve.py), so full width is held to 1e-2 of it.
+SERVE_TOL = 1e-2
+RING_WINDOW, RING_PROMPT, RING_TOKENS = 32, 48, 24
+QWEN3_D, QWEN3_CHUNKS = 751_632_384, 55   # tests/test_torch_zoo.py pins
+                                          # both, and the reference's layout
+
+
+def profile_decode(torch, step, n: int = 2) -> dict:
+    """Kernels and device busy time per decode step under torch.profiler
+    over ``n`` steps, beside the steps' host time (ended by a sync)."""
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(kernels_per_token=sum(e.count for e in kernels) / n,
+                device_busy_ms=busy_ms, wall_ms=wall * 1e3 / n,
+                idle_share=1 - busy_ms / (wall * 1e3 / n),
+                top=[dict(kernel=e.key[:80], count=e.count / n,
+                          ms=e.self_device_time_total / 1e3 / n)
+                     for e in top])
+
+
+def serve_phase(torch, dev, smi_line: str) -> dict:
+    """Serving at full width through ``launch/serve_lm.serve`` from
+    torch-initialised random weights: batch 2, a prompt of 64 and 32
+    greedy tokens for each of ``SERVE_ARCHS``, each checked against a
+    fresh prefill of the same sequence; the ring buffer at full width
+    (qwen3-0.6b, window 32, a prompt of 48, 24 teacher-forced tokens,
+    each step against a big cache with the same window); and 2 rounds of
+    FetchSGD on qwen3-0.6b (2 clients, flat, 5 x 2**20, k = 25,000)
+    through ``run_simulation``, counting every kernel's launches."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer
+
+    print(f"serve on {smi_line}")
+    runs, ring, fetch = [], None, None
+    gen = torch.Generator().manual_seed(1)
+    for arch in SERVE_ARCHS:
+        cfg = configs.get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        n_params = transformer.param_count(params)
+        prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                                generator=gen)
+        serve_lm.serve(cfg, params, prompts, 2, dev)         # warm-up
+        ops.reset_launch_counts()
+        res = serve_lm.serve(cfg, params, prompts, SERVE_TOKENS, dev)
+        check(not any(ops.launch_counts().values()),
+              f"{arch}: serving launches no sketch kernel")
+        seq = torch.cat([prompts.to(dev), res.tokens[:, :-1]], dim=1)
+        with torch.no_grad():
+            fresh, _ = transformer.prefill(
+                params, {"tokens": seq}, cfg,
+                transformer.init_cache(cfg, SERVE_BATCH, seq.shape[1],
+                                       device=dev))
+        scale = float(fresh.abs().max())
+        gap = float((res.logits - fresh).abs().max())
+        top2 = fresh.topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        check(bool(torch.isfinite(res.logits).all())
+              and res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS),
+              f"{arch}: {SERVE_TOKENS} tokens a sequence, finite logits")
+        check(gap <= SERVE_TOL * scale,
+              f"{arch}: the last decode step's logits = a fresh prefill of "
+              f"the {seq.shape[1]} tokens within {SERVE_TOL:g} of the "
+              f"largest logit ({gap:.3e} of {scale:.3f}; top-2 margin "
+              f"{margin:.3e})")
+        check(torch.equal(res.logits.argmax(-1), fresh.argmax(-1)),
+              f"{arch}: the same argmax as the fresh prefill")
+        attn = res.cache["attn"]
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in attn.values())
+        # the least a decode step reads: every weight once but the
+        # embedding's unused rows, and the cache slots that hold a token
+        flat = dict(layout_lib.flatten(params))
+        p_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        table = params["embed"]["table"]
+        if "unembed" in params:
+            p_bytes -= (table.shape[0] - SERVE_BATCH) * table.shape[1] \
+                * table.element_size()
+        kv_slot = 2 * attn["k"][:, :, :, 0].numel() * attn["k"].element_size()
+        mean_slots = SERVE_PROMPT + SERVE_TOKENS / 2
+        bound_ms = (p_bytes + kv_slot * mean_slots) / HBM_BYTES_PER_S * 1e3
+        tok = res.tokens[:, -1:]
+        prof = profile_decode(torch, lambda: transformer.decode_step(
+            params, tok, cfg, res.cache))
+        run = dict(arch=arch, params=n_params, param_bytes=n_params * 4,
+                   cache_bytes=cache_bytes, prefill_s=res.prefill_s,
+                   decode_ms_per_token=res.decode_s * 1e3,
+                   hbm_bound_ms_per_token=bound_ms,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   gap=gap, logit_scale=scale, top2_margin=margin,
+                   profile=prof)
+        print(f"{arch}: {n_params:,} params, KV cache {cache_bytes:,} B, "
+              f"prefill {res.prefill_s:.6f} s, decode "
+              f"{run['decode_ms_per_token']:.6f} ms/token (HBM bound "
+              f"{bound_ms:.6f} ms), peak {run['peak_mem_gib']:.3f} GiB; "
+              f"profiled: {prof['kernels_per_token']:.0f} kernels/token, "
+              f"device busy {prof['device_busy_ms']:.6f} of "
+              f"{prof['wall_ms']:.6f} ms ({smi_line})")
+        for k in prof["top"]:
+            print(f"  {k['ms']:.6f} ms {k['count']:6.1f}x  {k['kernel']}")
+        runs.append(run)
+        del res, fresh
+        if arch == "qwen3-0.6b":
+            ring = ring_check(torch, dev, cfg, params, transformer)
+            fetch = qwen3_fetchsgd(torch, dev, cfg, params, smi_line)
+        del params, flat, table
+    return dict(runs=runs, ring=ring, fetchsgd=fetch)
+
+
+def ring_check(torch, dev, cfg, params, transformer) -> dict:
+    """qwen3-0.6b with a window of 32 and a prompt of 48 (longer than the
+    window and not a multiple of it): each of 24 teacher-forced decode
+    steps of the ring-buffer cache against a big cache with the window."""
+    import dataclasses
+
+    wcfg = dataclasses.replace(cfg, sliding_window=RING_WINDOW)
+    n = RING_PROMPT + RING_TOKENS
+    toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, n),
+                         generator=torch.Generator().manual_seed(4)).to(dev)
+    ring = transformer.init_cache(wcfg, SERVE_BATCH, n, device=dev)
+    big = transformer.init_cache(dataclasses.replace(wcfg, sliding_window=0),
+                                 SERVE_BATCH, n, device=dev)
+    check(ring["attn"]["k"].shape[3] == RING_WINDOW
+          and big["attn"]["k"].shape[3] == n,
+          f"ring capacity {RING_WINDOW}, big cache {n}")
+    worst = 0.0
+    with torch.no_grad():
+        first = {"tokens": toks[:, :RING_PROMPT]}
+        lr, ring = transformer.prefill(params, first, wcfg, ring)
+        lb, big = transformer.prefill(params, first, wcfg, big)
+        for t in range(RING_PROMPT, n):
+            lr, ring = transformer.decode_step(params, toks[:, t:t + 1], wcfg,
+                                               ring)
+            lb, big = transformer.decode_step(params, toks[:, t:t + 1], wcfg,
+                                              big)
+            worst = max(worst, float((lr - lb).abs().max()
+                                     / lb.abs().max()))
+            check(torch.allclose(lr, lb, rtol=1e-3,
+                                 atol=1e-3 * float(lb.abs().max())),
+                  f"ring pos {t}: ring = big cache (rtol 1e-3, atol 1e-3 of "
+                  f"the largest logit)")
+    return dict(window=RING_WINDOW, prompt=RING_PROMPT, tokens=RING_TOKENS,
+                max_gap_rel=worst)
+
+
+def qwen3_fetchsgd(torch, dev, cfg, params, smi_line: str) -> dict:
+    """2 rounds of FetchSGD on qwen3-0.6b at full width through
+    ``run_simulation``: 2 clients a round, flat, PersonaLM at seq 256, the
+    main path's sketch; every kernel's launches counted."""
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import simulate
+
+    lay = layout_lib.build_layout(params)
+    check(lay.total == QWEN3_D and lay.num_chunks == QWEN3_CHUNKS,
+          f"qwen3-0.6b: d = {QWEN3_D:,} in {QWEN3_CHUNKS} chunks")
+    rounds, cpr = 2, 2
+    seconds: list[float] = []
+    clock = [0.0]
+
+    def progress(r, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds.append(now - clock[0])
+        clock[0] = now
+
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256, n_clients=24)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    clock[0] = time.perf_counter()
+    res = simulate.run_simulation(
+        cfg, method="fetchsgd", rounds=rounds, clients_per_round=cpr,
+        fs_cfg=F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9),
+        dataset=dataset, aggregate="flat", params=params, device=dev,
+        progress=progress)
+    counts = ops.launch_counts()
+    print(f"qwen3-0.6b fetchsgd: losses {res.losses}; s/round {seconds}; "
+          f"launches {counts} ({smi_line})")
+    check(counts == {"encode": QWEN3_CHUNKS * cpr * rounds,
+                     "estimate": QWEN3_CHUNKS * rounds,
+                     "momentum_error": rounds, "topk_mask": rounds},
+          f"qwen3-0.6b: {QWEN3_CHUNKS} encodes a client, {QWEN3_CHUNKS} "
+          f"estimates, 1 momentum_error and 1 topk_mask a round")
+    check(all(math.isfinite(x) for x in res.losses),
+          "qwen3-0.6b: every loss finite")
+    up = ROWS * COLS * 4
+    recs = res.extras["fed_records"]
+    check(all(r.upload_bytes == up * r.n_fresh and r.n_fresh == cpr
+              for r in recs),
+          f"qwen3-0.6b: {up:,} B ({up / 1e6:.2f} MB) up a client a round")
+    return dict(rounds=rounds, clients_per_round=cpr, d=lay.total,
+                chunks=lay.num_chunks, groups=len(lay.groups),
+                losses=res.losses, seconds=seconds, launches=counts,
+                upload_bytes_per_client=up, traffic=res.traffic)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -998,6 +1228,10 @@ def main() -> int:
     telemetry = telemetry_phase(torch, dev, smi)
     (OUT / "chip_smoke_telemetry.json").write_text(json.dumps(
         {"device": smi, **telemetry}, indent=1))
+    print("serve: the dense zoo served at full width")
+    serve = serve_phase(torch, dev, smi)
+    (OUT / "chip_smoke_serve.json").write_text(json.dumps(
+        {"device": smi, **serve}, indent=1))
 
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",

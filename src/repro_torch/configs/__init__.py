@@ -1,8 +1,9 @@
 """Architecture registry (port of ``repro.configs``).
 
-Only the paper's own model, ``gpt2s-federated``, is ported so far.
-``get_config(name)`` returns the full ArchConfig; ``get_smoke(name)`` the
-reduced same-family variant.
+The dense zoo and the paper's own model, ``gpt2s-federated``, in the
+reference's order (the MoE, recurrent and encoder-decoder archs are not
+ported yet).  ``get_config(name)`` returns the full ArchConfig;
+``get_smoke(name)`` the reduced same-family variant.
 """
 
 from __future__ import annotations
@@ -11,7 +12,14 @@ import importlib
 
 from repro_torch.models.config import ArchConfig
 
-ARCHS = ("gpt2s-federated",)
+ARCHS = (
+    "deepseek-7b",
+    "qwen3-0.6b",
+    "glm4-9b",
+    "internlm2-1.8b",
+    # the paper's own experiment model (Sec. 5.3)
+    "gpt2s-federated",
+)
 
 _MOD = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 

@@ -1,0 +1,97 @@
+"""Serving: batched prefill and greedy token-by-token decode.
+
+Port of ``examples/serve_lm.py``: a (randomly initialized) model of the
+zoo prefills a batch of prompts and greedily decodes continuations
+through the KV cache (``models.transformer.init_cache`` / ``prefill`` /
+``decode_step``).  The command line runs the reduced (smoke) config of an
+arch; :func:`serve` takes any config and parameters.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch import configs, resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor    # (B, n_tokens) greedy continuation
+    logits: torch.Tensor    # (B, V) logits that chose the last token
+    cache: dict             # the cache after the last decode step
+    prefill_s: float        # prefill seconds, ended by a device sync
+    decode_s: float         # seconds per decode step, ended by a device sync
+
+
+def serve(cfg, params: dict, prompts: torch.Tensor, n_tokens: int,
+          device=None) -> ServeResult:
+    """Prefill ``prompts`` (B, S) and decode ``n_tokens`` greedy tokens:
+    the first from the prefill's logits, the others from ``n_tokens - 1``
+    decode steps.  ``params`` lie on ``device`` (``cuda`` unless asked
+    otherwise); the cache is sized for ``S + n_tokens`` positions (a ring
+    of the window's size if the config has a smaller sliding window)."""
+    device = resolve_device(device)
+    prompts = prompts.to(device)
+    B, S = prompts.shape
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, B, S + n_tokens, device=device)
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(params, {"tokens": prompts}, cfg,
+                                            cache)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        tok = logits.argmax(dim=-1, keepdim=True)
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(n_tokens - 1):
+            logits, cache = transformer.decode_step(params, tok, cfg, cache)
+            tok = logits.argmax(dim=-1, keepdim=True)
+            out.append(tok)
+        sync()
+        decode_s = (time.perf_counter() - t0) / max(n_tokens - 1, 1)
+    return ServeResult(torch.cat(out, dim=1), logits, cache, prefill_s,
+                       decode_s)
+
+
+def main(argv=None, log=print) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    choices=configs.list_archs())
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get_smoke(args.arch)      # reduced zoo variant
+    params = transformer.init_params(cfg, seed=0, device=device)
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen)
+    res = serve(cfg, params, prompts, args.tokens, device)
+    log(f"{args.arch}: prefilled {args.batch}x{args.prompt_len} in "
+        f"{res.prefill_s:.2f}s (cache pos {args.prompt_len})")
+    log(f"decoded {args.tokens} tokens/seq at {res.decode_s * 1e3:.1f} "
+        f"ms/token")
+    for i, seq in enumerate(res.tokens.tolist()):
+        log(f"  seq{i}: {seq}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

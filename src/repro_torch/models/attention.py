@@ -1,10 +1,20 @@
-"""Causal self-attention for training: RoPE and a chunked softmax.
+"""GQA self-attention: RoPE, qk-norm, sliding window, chunked softmax, KV
+cache.
 
-Port of the train path of ``repro.models.attention`` (GQA, no qk-norm, no
-sliding window, no KV cache).  Weights keep the reference's layout:
-``wq/wk/wv`` are ``(d, heads, hd)`` and ``wo`` is ``(H, hd, d)``.
-Attention is written out as products and a softmax, as the reference's
-``_attend`` does, with queries taken in blocks of ``cfg.attn_chunk``.
+Port of ``repro.models.attention`` but its cross-attention.  Weights keep
+the reference's layout: ``wq/wk/wv`` are ``(d, heads, hd)`` and ``wo`` is
+``(H, hd, d)``.  Attention is written out as products and a softmax, as the
+reference's ``_attend`` does, with queries taken in blocks of
+``cfg.attn_chunk``.
+
+The KV cache stores the absolute position of every slot (``pos_arr``, -1 =
+empty), so full and ring-buffer caches share one masking rule: a slot is
+visible iff ``0 <= slot_pos <= q_pos`` (and inside the window, if any).
+Position ``p`` always lives in slot ``p % capacity``, in prefill as in
+decode.  The reference's prefill writes its last ``capacity`` keys into
+slots ``0..capacity-1`` instead; the two agree whenever the prompt fits
+the cache or is a multiple of it, and otherwise the reference's decode
+overwrites keys that are still inside the window.
 """
 
 from __future__ import annotations
@@ -16,6 +26,8 @@ from .config import ArchConfig
 
 NEG_INF = -1e30
 
+
+# -- rotary embeddings --------------------------------------------------------
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
@@ -32,41 +44,141 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# -- cache --------------------------------------------------------------------
+
+def cache_init(cfg: ArchConfig, batch: int, capacity: int, n_units: int,
+               members: int, dtype=torch.bfloat16, device=None) -> dict:
+    """Stacked KV cache for all attention members of all units: ``k`` and
+    ``v`` are ``(n_units, members, batch, capacity, KV, hd)``; ``pos_arr``
+    ``(n_units, members, capacity)`` holds each slot's absolute position
+    (-1 = empty)."""
+    shape = (n_units, members, batch, capacity, cfg.n_kv_heads, cfg.hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos_arr": torch.full((n_units, members, capacity), -1,
+                              dtype=torch.int32, device=device),
+    }
+
+
+# -- core attention -----------------------------------------------------------
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            positions: torch.Tensor, chunk: int) -> torch.Tensor:
-    """Causal attention in float32; q: (B,S,H,hd), k/v: (B,S,KV,hd)."""
-    B, S, H, hd = q.shape
+            q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+            window: int, chunk: int,
+            compute_dtype: str = "float32") -> torch.Tensor:
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd), q_pos: (B,Sq), k_pos: (B,Sk).
+
+    Chunked over Sq; query head ``h = kv * G + g``.  Slots with
+    ``k_pos < 0`` are always masked.  ``compute_dtype="bfloat16"`` rounds
+    q, k, v and the softmax to bf16 and multiplies in float32: the product
+    of two bf16 values is exact in float32, so this is the reference's
+    bf16 einsum with ``preferred_element_type=float32``.
+    """
+    B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = hd ** -0.5
-    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    low = compute_dtype == "bfloat16"
+
+    def prep(t):
+        return t.to(torch.bfloat16).to(torch.float32) if low \
+            else t.to(torch.float32)
+
+    qf, kf, vf = prep(q), prep(k), prep(v)
     outs = []
-    for s0 in range(0, S, chunk):
-        qc = q[:, s0:s0 + chunk]
+    for s0 in range(0, Sq, chunk):
+        qc = qf[:, s0:s0 + chunk]
+        qp = q_pos[:, s0:s0 + chunk]
         c = qc.shape[1]
-        qc = qc.reshape(B, c, KV, G, hd)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qc, k) * scale
-        ok = positions[:, None, :] <= positions[:, s0:s0 + c, None]  # (B,c,S)
+        s = torch.einsum("bqkgh,bskh->bkgqs",
+                         qc.reshape(B, c, KV, G, hd), kf) * scale
+        ok = (k_pos[:, None, :] >= 0).expand(B, c, -1)        # (B,c,Sk)
+        if causal:
+            ok = ok & (k_pos[:, None, :] <= qp[:, :, None])
+        if window:
+            ok = ok & (k_pos[:, None, :] > qp[:, :, None] - window)
         s = torch.where(ok[:, None, None], s, NEG_INF)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskh->bqkgh", p, v)
+        p = prep(torch.softmax(s, dim=-1))
+        o = torch.einsum("bkgqs,bskh->bqkgh", p, vf)
         outs.append(o.reshape(B, c, H, hd))
-    return torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
     q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
     k = layers.einsum("bsd,dhk->bshk", x, p["wk"])
     v = layers.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm and "q_norm" in p:
+        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
+def _out(p: dict, o: torch.Tensor) -> torch.Tensor:
+    return layers.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over the full sequence; x: (B, S, d)."""
+                 positions: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Causal self-attention over the full (possibly banded) sequence for
+    training; x: (B, S, d), positions: (S,) or (B, S)."""
     B, S, _ = x.shape
     positions = positions.expand(B, S)
     q, k, v = _qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, positions, cfg.attn_chunk).to(q.dtype)
-    return layers.einsum("bshk,hkd->bsd", o, p["wo"])
+    o = _attend(q, k, v, positions, positions, causal=True, window=window,
+                chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype)
+    return _out(p, o)
+
+
+def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 pos_arr: torch.Tensor, *, window: int = 0):
+    """Prefill: the full forward over the fresh float32 k and v, and the
+    prompt's last ``min(S, capacity)`` positions written into the cache,
+    position ``p`` into slot ``p % capacity``.
+
+    ``cache_k/v`` (B, cap, KV, hd) and ``pos_arr`` (cap,) are updated in
+    place and returned: (out, cache_k, cache_v, pos_arr).
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = _attend(q, k, v, positions, positions, causal=True, window=window,
+                chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype)
+    cap = cache_k.shape[1]
+    n = min(S, cap)
+    kept = torch.arange(S - n, S, device=x.device)
+    slots = kept % cap
+    cache_k.index_copy_(1, slots, k[:, S - n:].to(cache_k.dtype))
+    cache_v.index_copy_(1, slots, v[:, S - n:].to(cache_v.dtype))
+    pos_arr.index_copy_(0, slots, kept.to(pos_arr.dtype))
+    return _out(p, o), cache_k, cache_v, pos_arr
+
+
+def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                cache_k: torch.Tensor, cache_v: torch.Tensor,
+                pos_arr: torch.Tensor, pos: torch.Tensor, *, window: int = 0):
+    """Single-token decode against a (possibly ring-buffer) KV cache.
+
+    x: (B, 1, d); ``pos`` is a 0-d integer tensor, read on the device only
+    (no host sync).  The token's k and v go into slot ``pos % capacity``
+    (a ring when a window sized the cache, an append when the capacity is
+    the whole sequence), then the query attends over the cache, the new
+    slot included.  ``cache_k/v`` and ``pos_arr`` are updated in place and
+    returned: (out, cache_k, cache_v, pos_arr); the caller advances
+    ``pos``.
+    """
+    B = x.shape[0]
+    cap = cache_k.shape[1]
+    positions = pos.reshape(1, 1).expand(B, 1)
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    slot = (pos % cap).reshape(1).long()
+    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    pos_arr.index_copy_(0, slot, pos.reshape(1).to(pos_arr.dtype))
+    o = _attend(q, cache_k, cache_v, positions, pos_arr.expand(B, cap),
+                causal=True, window=window, chunk=cfg.attn_chunk,
+                compute_dtype=cfg.attn_compute_dtype)
+    return _out(p, o), cache_k, cache_v, pos_arr

@@ -1,8 +1,10 @@
 """Architecture configuration.
 
-Port of ``repro.models.config`` for the dense attention models the port
-runs so far: a model is ``n_layers`` units of ``unit_pattern``, with
-parameters stacked on a leading ``(n_units,)`` dim as in the reference.
+Port of ``repro.models.config`` for the dense attention models: a model
+is ``n_layers`` units of ``unit_pattern``, with parameters stacked on a
+leading ``(n_units,)`` dim as in the reference.  Every field keeps the
+reference's name and default; the MoE, SSM, xLSTM and encoder-decoder
+fields are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
+    arch_type: str             # dense (the only family ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,9 +31,18 @@ class ArchConfig:
     vocab: int
     unit_pattern: tuple[LayerSpec, ...] = (LayerSpec("attn"),)
     head_dim: int = 0          # 0 -> d_model // n_heads
-    act: str = "gelu"          # gelu (swiglu is not ported)
+    act: str = "swiglu"        # swiglu | gelu
+    qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    # attention variant
+    sliding_window: int = 0    # 0 = full attention; >0 = window size
+    # numerics
+    param_dtype: str = "float32"
+    attn_compute_dtype: str = "float32"   # "bfloat16": q, k, v and the
+                                          # softmax rounded to bf16, products
+                                          # summed in float32
     attn_chunk: int = 512      # query-block size for chunked attention
     loss_chunk: int = 512      # sequence-block size for chunked xent
 
@@ -62,8 +74,11 @@ def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:
         head_dim=d_model // n_heads,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab=min(cfg.vocab, 512),
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
+        else 0,
         attn_chunk=64,
         loss_chunk=64,
+        param_dtype="float32",
     )
     changes.update(overrides)
     return dataclasses.replace(cfg, **changes)

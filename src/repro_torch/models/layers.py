@@ -52,10 +52,14 @@ def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
 # -- MLP -------------------------------------------------------------------------
 
 def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    if act != "gelu":
-        raise ValueError(f"activation {act} is not ported")
-    # the tanh form, which jax.nn.gelu computes by default
-    h = F.gelu(matmul(x, p["w_up"]), approximate="tanh")
+    up = matmul(x, p["w_up"])
+    if act == "swiglu":
+        h = F.silu(matmul(x, p["w_gate"])) * up
+    elif act == "gelu":
+        # the tanh form, which jax.nn.gelu computes by default
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown act {act}")
     return matmul(h, p["w_down"])
 
 

@@ -511,3 +511,45 @@ def test_resume_on_the_card_follows_the_contract(dev, tmp_path, clock):
     np.testing.assert_allclose(resumed.losses, full.losses[2:], rtol=1e-3)
     assert [e["round"] for e in sink.events if e["type"] == "round"] \
         == [2, 3]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "glm4-9b", "gpt2s-federated"])
+def test_serve_on_the_card_matches_the_cpu(dev, arch):
+    """The smoke config served on the card and on the CPU from the same
+    weights: prefill logits within 1e-4 of the largest logit (float32 on
+    both, TF32 off), and 12 teacher-forced decode steps within one bfloat16
+    step (2**-8) of the largest logit, since the bfloat16 cache can round a
+    key to its neighbour on one device only; the caches hold the same
+    positions."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tt
+
+    cfg = configs.get_smoke(arch)
+    cpu = tt.init_params(cfg, seed=0)
+    card = L.tree_map(lambda x: x.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(3))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            caches = [tt.init_cache(cfg, 2, 24, device=d)
+                      for d in ("cpu", dev)]
+            outs = [tt.prefill(p, {"tokens": toks[:, :8].to(d)}, cfg, c)[0]
+                    for p, c, d in zip((cpu, card), caches, ("cpu", dev))]
+            scale = float(outs[0].abs().max())
+            torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-4,
+                                       atol=1e-4 * scale)
+            for t in range(8, 20):
+                outs = [tt.decode_step(p, toks[:, t:t + 1].to(d), cfg, c)[0]
+                        for p, c, d in zip((cpu, card), caches,
+                                           ("cpu", dev))]
+                scale = float(outs[0].abs().max())
+                torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=0,
+                                           atol=2 ** -8 * scale,
+                                           msg=f"pos {t}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert torch.equal(caches[1]["attn"]["pos_arr"].cpu(),
+                       caches[0]["attn"]["pos_arr"])
+    assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == 20

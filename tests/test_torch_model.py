@@ -133,9 +133,10 @@ def test_layers_match_reference(rng):
     q, k, v = (rng.normal(size=(2, 40, 2, 32)).astype(np.float32)
                for _ in range(3))
     posb = np.broadcast_to(pos, (2, 40))
+    tpos = torch.from_numpy(posb.copy()).long()
     np.testing.assert_allclose(
-        ta._attend(*(torch.from_numpy(a) for a in (q, k, v)),
-                   torch.from_numpy(posb.copy()).long(), 16).numpy(),
+        ta._attend(*(torch.from_numpy(a) for a in (q, k, v)), tpos, tpos,
+                   causal=True, window=0, chunk=16).numpy(),
         np.asarray(ja._attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                               jnp.asarray(posb), jnp.asarray(posb),
                               causal=True, window=0, chunk=16)),
