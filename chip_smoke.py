@@ -42,15 +42,19 @@ In order, it
    sketch-health sample each round, checked against the launch counts and
    against the same run without telemetry; the median seconds of each
    span, s/round with and without telemetry, and a health sample's cost;
-9. serves the dense zoo at full width (``serve``): batch 2, a prompt of
-   64 and 32 greedy tokens through ``repro_torch.launch.serve_lm.serve``
-   for gpt2s-federated, internlm2-1.8b, qwen3-0.6b and glm4-9b, from
+9. serves the zoo at full width (``serve``): batch 2, a prompt of 64
+   and 32 greedy tokens through ``repro_torch.launch.serve_lm.serve`` for
+   gpt2s-federated, internlm2-1.8b, qwen3-0.6b, glm4-9b, qwen2-moe-a2.7b,
+   xlstm-350m and jamba-v0.1-52b (16 of its 32 layers, bfloat16), from
    torch-initialised random weights, each checked against a fresh
-   prefill of the same sequence, with parameters, KV-cache bytes,
-   prefill seconds, decode ms/token beside its HBM bound, peak memory and
-   a profiled decode step; the ring buffer of qwen3-0.6b (window 32, a
-   prompt of 48) against a big cache; and 2 rounds of FetchSGD on
-   qwen3-0.6b (55 chunks, every kernel's launches counted);
+   prefill of the same sequence (a MoE arch on a second run under no-drop
+   capacity), with parameters, cache bytes, prefill seconds, decode
+   ms/token beside its HBM bound, peak memory and a profiled decode step;
+   the ring buffer of qwen3-0.6b (window 32, a prompt of 48) against a big
+   cache; xlstm-350m's recurrent state after a prompt of 136 (longer than
+   the mLSTM's chunk) against a fresh prefill; and 2 rounds of FetchSGD
+   on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24 layers) and xlstm-350m
+   (every kernel's launches counted);
 10. prints the kernels line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +67,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -956,16 +961,38 @@ def telemetry_phase(torch, dev, smi_line: str) -> dict:
                         for h in last_health])
 
 
-SERVE_ARCHS = ("gpt2s-federated", "internlm2-1.8b", "qwen3-0.6b", "glm4-9b")
+SERVE_ARCHS = ("gpt2s-federated", "internlm2-1.8b", "qwen3-0.6b", "glm4-9b",
+               "qwen2-moe-a2.7b", "xlstm-350m", "jamba-v0.1-52b")
+# jamba's 32 layers take 96 GiB in bfloat16: 2 of its 4 units (48.5 GiB)
+SERVE_CUTS = {"jamba-v0.1-52b": dict(n_layers=16)}
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 64, 32
 # A decode step attends over the bfloat16 cache, a prefill over float32 k
 # and v: on the CPU the last decode step's logits and a fresh prefill's
 # differed by at most 5.4e-3 of the largest logit (5 smoke archs x 3
 # seeds, tests/test_torch_serve.py), so full width is held to 1e-2 of it.
 SERVE_TOL = 1e-2
+# A MoE's routing is discrete: a bfloat16 rounding of a cached key that
+# moves a router's input can swap an expert.  On an H100 qwen2-moe's
+# decode under no-drop capacity with the bfloat16 cache was off a fresh
+# prefill by 0.639 of 4.386 (24 layers of top-4 of 60).  So the MoE check
+# runs with a float32 cache, where decode and prefill differ by float32
+# summation order only.
+# bfloat16 jamba's decode and a fresh prefill differ by as much in the
+# reference itself (0.14-0.25 of logits up to 3.4 at smoke size without
+# its MoE layers, up to 1.66 with them, as bfloat16 noise flips a
+# routing; 3 seeds on the CPU): its timed run's gap is measured, and the
+# check runs in float32 on one unit (8 layers, 48.5 GiB) at full width
+CHECK_CUTS = {"jamba-v0.1-52b": dict(n_layers=8, param_dtype="float32")}
 RING_WINDOW, RING_PROMPT, RING_TOKENS = 32, 48, 24
-QWEN3_D, QWEN3_CHUNKS = 751_632_384, 55   # tests/test_torch_zoo.py pins
-                                          # both, and the reference's layout
+XLSTM_PROMPT, XLSTM_TOKENS = 136, 16       # longer than the mLSTM's chunk
+# (d, chunks, groups) of the FetchSGD runs' layouts; tests/test_torch_zoo.py
+# pins each against the reference's layout
+FETCH_LAYOUTS = {"qwen3-0.6b": (751_632_384, 55, 23),
+                 "qwen2-moe-a2.7b": (5_186_750_464, 317, 24),
+                 "xlstm-350m": (518_640_808, 70, 66)}
+# qwen2-moe's weights and gradients of 24 layers take 107 GiB: FetchSGD
+# trains 8 of them
+FETCH_CUTS = {"qwen2-moe-a2.7b": dict(n_layers=8)}
 
 
 def profile_decode(torch, step, n: int = 2) -> dict:
@@ -992,31 +1019,86 @@ def profile_decode(torch, step, n: int = 2) -> dict:
                      for e in top])
 
 
+def fresh_check(torch, dev, arch, cfg, params, prompts, res,
+                transformer, enforce: bool) -> dict:
+    """The last decode step's logits of ``res`` against a fresh prefill of
+    the same sequence; checked when ``enforce``, else only measured."""
+    seq = torch.cat([prompts.to(dev), res.tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        fresh, _ = transformer.prefill(
+            params, {"tokens": seq}, cfg,
+            transformer.init_cache(cfg, SERVE_BATCH, seq.shape[1],
+                                   device=dev))
+    scale = float(fresh.abs().max())
+    gap = float((res.logits - fresh).abs().max())
+    top2 = fresh.topk(2, dim=-1).values
+    margin = float((top2[:, 0] - top2[:, 1]).min())
+    out = dict(gap=gap, logit_scale=scale, top2_margin=margin,
+               param_dtype=cfg.param_dtype, n_layers=cfg.n_layers,
+               kv_cache_dtype=str(res.cache["attn"]["k"].dtype)
+               if "attn" in res.cache else None,
+               capacity_factor=cfg.capacity_factor if cfg.n_experts
+               else None)
+    if not enforce:
+        print(f"{arch}: the last decode step vs a fresh prefill {gap:.3e} of "
+              f"{scale:.3f} ({cfg.param_dtype}"
+              + (f", capacity factor {cfg.capacity_factor:g}"
+                 if cfg.n_experts else "") + "; measured, not checked)")
+        return out
+    check(gap <= SERVE_TOL * scale,
+          f"{arch}: the last decode step's logits = a fresh prefill of the "
+          f"{seq.shape[1]} tokens within {SERVE_TOL:g} of the largest logit "
+          f"({gap:.3e} of {scale:.3f}; top-2 margin {margin:.3e}"
+          + (f"; capacity factor {cfg.capacity_factor:g}, no drops, "
+             f"{res.cache['attn']['k'].dtype} cache" if cfg.n_experts
+             else "")
+          + (f"; {cfg.n_layers} layers, {cfg.param_dtype}"
+             if arch in CHECK_CUTS else "") + ")")
+    check(torch.equal(res.logits.argmax(-1), fresh.argmax(-1)),
+          f"{arch}: the same argmax as the fresh prefill")
+    return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.core import layout as layout_lib
+    return sum(t.numel() * t.element_size()
+               for _, t in layout_lib.flatten(tree))
+
+
 def serve_phase(torch, dev, smi_line: str) -> dict:
     """Serving at full width through ``launch/serve_lm.serve`` from
     torch-initialised random weights: batch 2, a prompt of 64 and 32
-    greedy tokens for each of ``SERVE_ARCHS``, each checked against a
-    fresh prefill of the same sequence; the ring buffer at full width
-    (qwen3-0.6b, window 32, a prompt of 48, 24 teacher-forced tokens,
-    each step against a big cache with the same window); and 2 rounds of
-    FetchSGD on qwen3-0.6b (2 clients, flat, 5 x 2**20, k = 25,000)
-    through ``run_simulation``, counting every kernel's launches."""
+    greedy tokens for each of ``SERVE_ARCHS`` (jamba cut to 16 of its 32
+    layers), each checked against a fresh prefill of the same sequence (a
+    MoE arch, whose prefill drops tokens past an expert's capacity, on a
+    second run under no-drop capacity); the ring buffer at full width
+    (qwen3-0.6b, window 32, a prompt of 48, 24 teacher-forced tokens, each
+    step against a big cache with the same window); xlstm-350m's state
+    after a prompt of 136 against a fresh prefill; and 2 rounds of
+    FetchSGD (2 clients, flat, 5 x 2**20, k = 25,000) through
+    ``run_simulation`` on qwen3-0.6b, qwen2-moe-a2.7b (8 of 24 layers) and
+    xlstm-350m, counting every kernel's launches."""
+    import dataclasses
     import gc
 
     from repro_torch import configs
-    from repro_torch.core import layout as layout_lib
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_lm
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     print(f"serve on {smi_line}")
-    runs, ring, fetch = [], None, None
+    runs, ring, xl, fetch = [], None, None, {}
     gen = torch.Generator().manual_seed(1)
-    for arch in SERVE_ARCHS:
-        cfg = configs.get_config(arch)
+
+    def fresh_memory():
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+
+    for arch in SERVE_ARCHS:
+        cut = SERVE_CUTS.get(arch, {})
+        cfg = dataclasses.replace(configs.get_config(arch), **cut)
+        fresh_memory()
         params = transformer.init_params(cfg, seed=0, device=dev)
         n_params = transformer.param_count(params)
         prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
@@ -1026,66 +1108,102 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         res = serve_lm.serve(cfg, params, prompts, SERVE_TOKENS, dev)
         check(not any(ops.launch_counts().values()),
               f"{arch}: serving launches no sketch kernel")
-        seq = torch.cat([prompts.to(dev), res.tokens[:, :-1]], dim=1)
-        with torch.no_grad():
-            fresh, _ = transformer.prefill(
-                params, {"tokens": seq}, cfg,
-                transformer.init_cache(cfg, SERVE_BATCH, seq.shape[1],
-                                       device=dev))
-        scale = float(fresh.abs().max())
-        gap = float((res.logits - fresh).abs().max())
-        top2 = fresh.topk(2, dim=-1).values
-        margin = float((top2[:, 0] - top2[:, 1]).min())
         check(bool(torch.isfinite(res.logits).all())
               and res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS),
               f"{arch}: {SERVE_TOKENS} tokens a sequence, finite logits")
-        check(gap <= SERVE_TOL * scale,
-              f"{arch}: the last decode step's logits = a fresh prefill of "
-              f"the {seq.shape[1]} tokens within {SERVE_TOL:g} of the "
-              f"largest logit ({gap:.3e} of {scale:.3f}; top-2 margin "
-              f"{margin:.3e})")
-        check(torch.equal(res.logits.argmax(-1), fresh.argmax(-1)),
-              f"{arch}: the same argmax as the fresh prefill")
-        attn = res.cache["attn"]
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in attn.values())
+        # a MoE prefill drops tokens past an expert's capacity and a decode
+        # of two tokens never does: the timed run keeps the published
+        # capacity, the check runs again under no-drop capacity
+        nodrop = moe.no_drop(cfg)
+        enforce = arch not in CHECK_CUTS
+        published = fresh_check(torch, dev, arch, cfg, params, prompts, res,
+                                transformer, enforce and nodrop is cfg)
+        checked = published
+        if nodrop is not cfg:
+            res_nd = serve_lm.serve(nodrop, params, prompts, SERVE_TOKENS,
+                                    dev, cache_dtype=torch.float32)
+            checked = fresh_check(torch, dev, arch, nodrop, params, prompts,
+                                  res_nd, transformer, enforce)
+            del res_nd
+        cache = {k: v for k, v in res.cache.items() if k != "pos"}
+        cache_bytes = tree_bytes(cache)
         # the least a decode step reads: every weight once but the
-        # embedding's unused rows, and the cache slots that hold a token
-        flat = dict(layout_lib.flatten(params))
-        p_bytes = sum(t.numel() * t.element_size() for t in flat.values())
+        # embedding's unused rows, the attention slots that hold a token,
+        # and each recurrent state read and written once.  Under capacity
+        # dispatch every expert runs on its slots, so every expert's
+        # weights count.
+        p_bytes = param_bytes = tree_bytes(params)
         table = params["embed"]["table"]
         if "unembed" in params:
             p_bytes -= (table.shape[0] - SERVE_BATCH) * table.shape[1] \
                 * table.element_size()
-        kv_slot = 2 * attn["k"][:, :, :, 0].numel() * attn["k"].element_size()
-        mean_slots = SERVE_PROMPT + SERVE_TOKENS / 2
-        bound_ms = (p_bytes + kv_slot * mean_slots) / HBM_BYTES_PER_S * 1e3
+        kv_bytes = 0.0
+        if "attn" in cache:
+            k = cache["attn"]["k"]
+            kv_slot = 2 * k[:, :, :, 0].numel() * k.element_size()
+            kv_bytes = kv_slot * (SERVE_PROMPT + SERVE_TOKENS / 2)
+        state_bytes = sum(tree_bytes(cache[kind])
+                          for kind in ("mamba", "mlstm", "slstm")
+                          if kind in cache)
+        bound_ms = (p_bytes + kv_bytes + 2 * state_bytes) \
+            / HBM_BYTES_PER_S * 1e3
         tok = res.tokens[:, -1:]
         prof = profile_decode(torch, lambda: transformer.decode_step(
             params, tok, cfg, res.cache))
-        run = dict(arch=arch, params=n_params, param_bytes=n_params * 4,
-                   cache_bytes=cache_bytes, prefill_s=res.prefill_s,
+        run = dict(arch=arch, cut=cut or None, param_dtype=cfg.param_dtype,
+                   params=n_params, param_bytes=param_bytes,
+                   cache_bytes=cache_bytes, state_bytes=state_bytes,
+                   prefill_s=res.prefill_s,
                    decode_ms_per_token=res.decode_s * 1e3,
                    hbm_bound_ms_per_token=bound_ms,
+                   bound_reads_every_expert=bool(cfg.n_experts),
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                   gap=gap, logit_scale=scale, top2_margin=margin,
-                   profile=prof)
-        print(f"{arch}: {n_params:,} params, KV cache {cache_bytes:,} B, "
-              f"prefill {res.prefill_s:.6f} s, decode "
+                   gap=checked["gap"], logit_scale=checked["logit_scale"],
+                   top2_margin=checked["top2_margin"], check=checked,
+                   published_capacity=published if nodrop is not cfg
+                   else None, profile=prof)
+        print(f"{arch}{f' (cut: {cut})' if cut else ''}: {n_params:,} "
+              f"params ({param_bytes:,} B {cfg.param_dtype}), cache "
+              f"{cache_bytes:,} B, prefill {res.prefill_s:.6f} s, decode "
               f"{run['decode_ms_per_token']:.6f} ms/token (HBM bound "
-              f"{bound_ms:.6f} ms), peak {run['peak_mem_gib']:.3f} GiB; "
-              f"profiled: {prof['kernels_per_token']:.0f} kernels/token, "
-              f"device busy {prof['device_busy_ms']:.6f} of "
-              f"{prof['wall_ms']:.6f} ms ({smi_line})")
+              f"{bound_ms:.6f} ms"
+              + (", every expert's weights: capacity dispatch runs each "
+                 "expert on its slots" if cfg.n_experts else "")
+              + f"), peak {run['peak_mem_gib']:.3f} GiB; profiled: "
+              f"{prof['kernels_per_token']:.0f} kernels/token, device busy "
+              f"{prof['device_busy_ms']:.6f} of {prof['wall_ms']:.6f} ms "
+              f"({smi_line})")
         for k in prof["top"]:
             print(f"  {k['ms']:.6f} ms {k['count']:6.1f}x  {k['kernel']}")
         runs.append(run)
-        del res, fresh
+        del res, cache
         if arch == "qwen3-0.6b":
             ring = ring_check(torch, dev, cfg, params, transformer)
-            fetch = qwen3_fetchsgd(torch, dev, cfg, params, smi_line)
-        del params, flat, table
-    return dict(runs=runs, ring=ring, fetchsgd=fetch)
+        if arch == "xlstm-350m":
+            xl = xlstm_check(torch, dev, cfg, params, transformer)
+        if arch in FETCH_LAYOUTS and arch not in FETCH_CUTS:
+            fetch[arch] = fetchsgd_run(torch, dev, arch, cfg, params,
+                                       smi_line)
+        del params, table
+        if arch in CHECK_CUTS:
+            fresh_memory()
+            ccfg = moe.no_drop(dataclasses.replace(cfg, **CHECK_CUTS[arch]))
+            cparams = transformer.init_params(ccfg, seed=0, device=dev)
+            res = serve_lm.serve(ccfg, cparams, prompts, SERVE_TOKENS, dev,
+                                 cache_dtype=torch.float32)
+            run["check"] = fresh_check(torch, dev, arch, ccfg, cparams,
+                                       prompts, res, transformer, True)
+            run["check_cut"] = CHECK_CUTS[arch]
+            del res, cparams
+        if arch in FETCH_CUTS:
+            fresh_memory()
+            fcfg = dataclasses.replace(cfg, **FETCH_CUTS[arch])
+            fparams = transformer.init_params(fcfg, seed=0, device=dev)
+            fetch[arch] = fetchsgd_run(torch, dev, arch, fcfg, fparams,
+                                       smi_line)
+            fetch[arch]["cut"] = FETCH_CUTS[arch]
+            del fparams
+    return dict(runs=runs, ring=ring, xlstm_state=xl, fetchsgd=fetch)
 
 
 def ring_check(torch, dev, cfg, params, transformer) -> dict:
@@ -1124,20 +1242,69 @@ def ring_check(torch, dev, cfg, params, transformer) -> dict:
                 max_gap_rel=worst)
 
 
-def qwen3_fetchsgd(torch, dev, cfg, params, smi_line: str) -> dict:
-    """2 rounds of FetchSGD on qwen3-0.6b at full width through
+def xlstm_check(torch, dev, cfg, params, transformer) -> dict:
+    """xlstm-350m with a prompt of 136 (longer than the mLSTM's chunk of
+    128 and not a multiple of it), then 16 teacher-forced decode steps:
+    the last step's logits against a fresh prefill of the 152 tokens.  A
+    padded forget gate of 0 would wipe the state the prompt leaves."""
+    n = XLSTM_PROMPT + XLSTM_TOKENS
+    toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, n),
+                         generator=torch.Generator().manual_seed(5)).to(dev)
+    with torch.no_grad():
+        cache = transformer.init_cache(cfg, SERVE_BATCH, n, device=dev)
+        _, cache = transformer.prefill(
+            params, {"tokens": toks[:, :XLSTM_PROMPT]}, cfg, cache)
+        state_max = float(cache["mlstm"]["C"].abs().max())
+        for t in range(XLSTM_PROMPT, n):
+            got, cache = transformer.decode_step(params, toks[:, t:t + 1],
+                                                 cfg, cache)
+        fresh, _ = transformer.prefill(
+            params, {"tokens": toks}, cfg,
+            transformer.init_cache(cfg, SERVE_BATCH, n, device=dev))
+    scale = float(fresh.abs().max())
+    gap = float((got - fresh).abs().max())
+    check(state_max > 0, f"xlstm-350m: the mLSTM state after a prompt of "
+          f"{XLSTM_PROMPT} is not wiped (max |C| {state_max:.3e})")
+    check(gap <= SERVE_TOL * scale,
+          f"xlstm-350m: prompt {XLSTM_PROMPT} + {XLSTM_TOKENS} decode steps "
+          f"= a fresh prefill of {n} within {SERVE_TOL:g} of the largest "
+          f"logit ({gap:.3e} of {scale:.3f})")
+    return dict(prompt=XLSTM_PROMPT, tokens=XLSTM_TOKENS, gap=gap,
+                logit_scale=scale, mlstm_state_max=state_max)
+
+
+def fetchsgd_run(torch, dev, arch, cfg, params, smi_line: str) -> dict:
+    """2 rounds of FetchSGD on ``arch`` at full width through
     ``run_simulation``: 2 clients a round, flat, PersonaLM at seq 256, the
-    main path's sketch; every kernel's launches counted."""
+    main path's sketch; every kernel's launches counted.  The loss the
+    clients report is ``loss_fn``'s, cross entropy plus the MoE aux term
+    (checked on the dataset's smallest client)."""
     from repro_torch.core import fetchsgd as F
     from repro_torch.core import layout as layout_lib
-    from repro_torch.data import synthetic
+    from repro_torch.data import federated, synthetic
     from repro_torch.kernels import ops
     from repro_torch.launch import simulate
+    from repro_torch.models import transformer
 
+    d, n_chunks, n_groups = FETCH_LAYOUTS[arch]
     lay = layout_lib.build_layout(params)
-    check(lay.total == QWEN3_D and lay.num_chunks == QWEN3_CHUNKS,
-          f"qwen3-0.6b: d = {QWEN3_D:,} in {QWEN3_CHUNKS} chunks")
+    check((lay.total, lay.num_chunks, len(lay.groups))
+          == (d, n_chunks, n_groups),
+          f"{arch}: d = {d:,} in {n_chunks} chunks / {n_groups} groups")
     rounds, cpr = 2, 2
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256, n_clients=24)
+    small = min(range(dataset.n_clients), key=dataset.client_size)
+    batch = federated.to_batch(dataset.client_batch(small), dev)
+    with torch.no_grad():
+        total, metrics = transformer.loss_fn(params, batch, cfg)
+    reported, _ = transformer.value_and_grad(params, batch, cfg)
+    aux = float(metrics["aux"])
+    check(float(total) == float(metrics["xent"] + metrics["aux"])
+          and (aux > 0) == bool(cfg.n_experts)
+          and math.isclose(float(reported), float(total), rel_tol=1e-6),
+          f"{arch}: a client's loss = cross entropy "
+          f"{float(metrics['xent']):.6f} + aux {aux:.6f}, as value_and_grad "
+          f"reports it")
     seconds: list[float] = []
     clock = [0.0]
 
@@ -1147,8 +1314,8 @@ def qwen3_fetchsgd(torch, dev, cfg, params, smi_line: str) -> dict:
         seconds.append(now - clock[0])
         clock[0] = now
 
-    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256, n_clients=24)
     ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     clock[0] = time.perf_counter()
     res = simulate.run_simulation(
@@ -1157,27 +1324,36 @@ def qwen3_fetchsgd(torch, dev, cfg, params, smi_line: str) -> dict:
         dataset=dataset, aggregate="flat", params=params, device=dev,
         progress=progress)
     counts = ops.launch_counts()
-    print(f"qwen3-0.6b fetchsgd: losses {res.losses}; s/round {seconds}; "
-          f"launches {counts} ({smi_line})")
-    check(counts == {"encode": QWEN3_CHUNKS * cpr * rounds,
-                     "estimate": QWEN3_CHUNKS * rounds,
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} fetchsgd: losses {res.losses}; s/round {seconds}; peak "
+          f"{peak:.3f} GiB; launches {counts} ({smi_line})")
+    check(counts == {"encode": n_chunks * cpr * rounds,
+                     "estimate": n_chunks * rounds,
                      "momentum_error": rounds, "topk_mask": rounds},
-          f"qwen3-0.6b: {QWEN3_CHUNKS} encodes a client, {QWEN3_CHUNKS} "
-          f"estimates, 1 momentum_error and 1 topk_mask a round")
+          f"{arch}: {n_chunks} encodes a client, {n_chunks} estimates, 1 "
+          f"momentum_error and 1 topk_mask a round")
     check(all(math.isfinite(x) for x in res.losses),
-          "qwen3-0.6b: every loss finite")
+          f"{arch}: every loss finite")
     up = ROWS * COLS * 4
     recs = res.extras["fed_records"]
     check(all(r.upload_bytes == up * r.n_fresh and r.n_fresh == cpr
               for r in recs),
-          f"qwen3-0.6b: {up:,} B ({up / 1e6:.2f} MB) up a client a round")
+          f"{arch}: {up:,} B ({up / 1e6:.2f} MB) up a client a round")
     return dict(rounds=rounds, clients_per_round=cpr, d=lay.total,
                 chunks=lay.num_chunks, groups=len(lay.groups),
-                losses=res.losses, seconds=seconds, launches=counts,
-                upload_bytes_per_client=up, traffic=res.traffic)
+                losses=res.losses, seconds=seconds, peak_mem_gib=peak,
+                launches=counts, upload_bytes_per_client=up,
+                aux_check=dict(client=small, xent=float(metrics["xent"]),
+                               aux=aux),
+                traffic=res.traffic)
 
 
 def main() -> int:
+    # the serve phase frees and allocates models of 35-54 GiB one after
+    # another, and qwen2-moe's FetchSGD run then needs all but a few GiB
+    # of the card: segments that grow in place keep the freed blocks usable
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1228,7 +1404,7 @@ def main() -> int:
     telemetry = telemetry_phase(torch, dev, smi)
     (OUT / "chip_smoke_telemetry.json").write_text(json.dumps(
         {"device": smi, **telemetry}, indent=1))
-    print("serve: the dense zoo served at full width")
+    print("serve: the zoo served and trained at full width")
     serve = serve_phase(torch, dev, smi)
     (OUT / "chip_smoke_serve.json").write_text(json.dumps(
         {"device": smi, **serve}, indent=1))

@@ -1,9 +1,10 @@
 """Architecture registry (port of ``repro.configs``).
 
-The dense zoo and the paper's own model, ``gpt2s-federated``, in the
-reference's order (the MoE, recurrent and encoder-decoder archs are not
-ported yet).  ``get_config(name)`` returns the full ArchConfig;
-``get_smoke(name)`` the reduced same-family variant.
+The zoo and the paper's own model, ``gpt2s-federated``, in the
+reference's order (the encoder-decoder and multimodal archs,
+whisper-small and pixtral-12b, are not ported yet).
+``get_config(name)`` returns the full ArchConfig; ``get_smoke(name)`` the
+reduced same-family variant.
 """
 
 from __future__ import annotations
@@ -13,9 +14,13 @@ import importlib
 from repro_torch.models.config import ArchConfig
 
 ARCHS = (
+    "qwen2-moe-a2.7b",
+    "xlstm-350m",
+    "llama4-maverick-400b-a17b",
     "deepseek-7b",
     "qwen3-0.6b",
     "glm4-9b",
+    "jamba-v0.1-52b",
     "internlm2-1.8b",
     # the paper's own experiment model (Sec. 5.3)
     "gpt2s-federated",

@@ -2,9 +2,10 @@
 
 Port of ``examples/serve_lm.py``: a (randomly initialized) model of the
 zoo prefills a batch of prompts and greedily decodes continuations
-through the KV cache (``models.transformer.init_cache`` / ``prefill`` /
-``decode_step``).  The command line runs the reduced (smoke) config of an
-arch; :func:`serve` takes any config and parameters.
+through the KV and recurrent-state cache (``models.transformer``'s
+``init_cache`` / ``prefill`` / ``decode_step``).  The command line runs
+the reduced (smoke) config of an arch; :func:`serve` takes any config and
+parameters.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
 """
@@ -31,12 +32,13 @@ class ServeResult:
 
 
 def serve(cfg, params: dict, prompts: torch.Tensor, n_tokens: int,
-          device=None) -> ServeResult:
+          device=None, cache_dtype=torch.bfloat16) -> ServeResult:
     """Prefill ``prompts`` (B, S) and decode ``n_tokens`` greedy tokens:
     the first from the prefill's logits, the others from ``n_tokens - 1``
     decode steps.  ``params`` lie on ``device`` (``cuda`` unless asked
     otherwise); the cache is sized for ``S + n_tokens`` positions (a ring
-    of the window's size if the config has a smaller sliding window)."""
+    of the window's size if the config has a smaller sliding window) and
+    holds k and v in ``cache_dtype`` (recurrent states are float32)."""
     device = resolve_device(device)
     prompts = prompts.to(device)
     B, S = prompts.shape
@@ -46,7 +48,8 @@ def serve(cfg, params: dict, prompts: torch.Tensor, n_tokens: int,
             torch.cuda.synchronize(device)
 
     with torch.no_grad():
-        cache = transformer.init_cache(cfg, B, S + n_tokens, device=device)
+        cache = transformer.init_cache(cfg, B, S + n_tokens, cache_dtype,
+                                       device)
         sync()
         t0 = time.perf_counter()
         logits, cache = transformer.prefill(params, {"tokens": prompts}, cfg,

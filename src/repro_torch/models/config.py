@@ -1,10 +1,12 @@
 """Architecture configuration.
 
-Port of ``repro.models.config`` for the dense attention models: a model
-is ``n_layers`` units of ``unit_pattern``, with parameters stacked on a
-leading ``(n_units,)`` dim as in the reference.  Every field keeps the
-reference's name and default; the MoE, SSM, xLSTM and encoder-decoder
-fields are not ported yet.
+Port of ``repro.models.config``: a model is ``n_layers`` units of
+``unit_pattern``, with parameters stacked on a leading ``(n_units,)`` dim
+as in the reference.  Heterogeneous architectures (jamba's mamba and
+attention interleave, llama4's dense and MoE alternation, xLSTM's mLSTM
+and sLSTM mix) are expressed through the pattern.  Every field keeps the
+reference's name and default; the encoder-decoder and frontend fields are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -14,15 +16,15 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str          # attn (the only kind ported so far)
-    moe: bool = False  # MoE FFN (not ported)
-    ffn: bool = True   # has an FFN sub-block
+    kind: str          # attn | mamba | mlstm | slstm
+    moe: bool = False  # MoE FFN instead of the dense FFN
+    ffn: bool = True   # has an FFN sub-block (xLSTM blocks have none)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str             # dense (the only family ported so far)
+    arch_type: str             # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,6 +38,22 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    expert_top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # SSM (mamba)
+    ssm_d_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0       # 0 -> d_model // 16
+    ssm_remat: bool = False    # checkpoint the chunked selective scan
+                               # (recompute intra-chunk states in backward)
+    # xLSTM
+    xlstm_proj_factor: float = 2.0
     # attention variant
     sliding_window: int = 0    # 0 = full attention; >0 = window size
     # numerics
@@ -43,6 +61,8 @@ class ArchConfig:
     attn_compute_dtype: str = "float32"   # "bfloat16": q, k, v and the
                                           # softmax rounded to bf16, products
                                           # summed in float32
+    shard_experts_data: bool = False   # expert sharding over data (kept as
+                                       # a field: one device has no mesh)
     attn_chunk: int = 512      # query-block size for chunked attention
     loss_chunk: int = 512      # sequence-block size for chunked xent
 
@@ -60,9 +80,18 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.ssm_dt_rank or max(1, self.d_model // 16)
+
 
 def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:
-    """Reduced variant of the same family: <=2 units, d_model<=256."""
+    """Reduced variant of the same family: <=2 units, d_model<=256, <=4
+    experts."""
     d_model = min(cfg.d_model, 256)
     n_heads = min(cfg.n_heads, 4)
     changes = dict(
@@ -74,11 +103,16 @@ def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:
         head_dim=d_model // n_heads,
         d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
         vocab=min(cfg.vocab, 512),
+        n_experts=min(cfg.n_experts, 4),
+        n_shared_experts=min(cfg.n_shared_experts, 1),
+        expert_top_k=min(cfg.expert_top_k, 2),
+        moe_d_ff=min(cfg.moe_d_ff, 256) if cfg.moe_d_ff else 0,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
         else 0,
         attn_chunk=64,
         loss_chunk=64,
         param_dtype="float32",
+        shard_experts_data=False,
     )
     changes.update(overrides)
     return dataclasses.replace(cfg, **changes)

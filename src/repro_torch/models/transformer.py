@@ -1,21 +1,25 @@
 """Model assembly: init, units, and the train / prefill / decode entry
 points.
 
-Port of ``repro.models.transformer`` for dense attention units.
-Parameters are the reference's tree — nested dicts with units stacked on a
-leading ``(n_units,)`` dim — so the flat layout, and with it every sketch
-hash, matches the JAX package.
+Port of ``repro.models.transformer`` but the encoder-decoder and the
+multimodal frontends.  A unit's members are attention, mamba, mLSTM or
+sLSTM blocks, each with a dense or MoE FFN or none.  Parameters are the
+reference's tree (nested dicts with units stacked on a leading
+``(n_units,)`` dim), so the flat layout, and with it every sketch hash,
+matches the JAX package.
 
 Dtypes follow the reference's jnp promotion.  On the train path the
 residual stream enters each unit as bfloat16; inside the unit bfloat16
 activations meet float32 weights and promote to float32; the unit's
 output is cast back to bfloat16.  The serve path (``prefill``,
 ``decode_step``) keeps the residual in the parameters' dtype, as the
-reference's does; its KV cache is bfloat16.
+reference's does; its KV cache is bfloat16 and its recurrent states
+float32.
 
 Entry points:
 
-* ``loss_fn`` / ``value_and_grad`` — next-token cross entropy
+* ``loss_fn`` / ``value_and_grad`` — next-token cross entropy plus the
+  MoE routers' auxiliary loss
 * ``init_cache``, ``prefill`` — forward over the prompt, filling the cache
 * ``decode_step`` — one token against the cache, with no host sync
 """
@@ -26,61 +30,138 @@ import torch
 
 from repro_torch.core import layout as layout_lib
 
-from . import attention, layers
-from .config import ArchConfig
+from . import attention, layers, moe, ssm, xlstm
+from .config import ArchConfig, LayerSpec
+
+KINDS = ("attn", "mamba", "mlstm", "slstm")
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_kinds(cfg: ArchConfig) -> None:
     for spec in cfg.unit_pattern:
-        if spec.kind != "attn":
-            raise NotImplementedError(f"unit kind {spec.kind!r} is not ported")
-        if spec.moe:
-            raise NotImplementedError("unit kind 'moe' is not ported")
-        if not spec.ffn:
-            raise NotImplementedError("attention units without an FFN are "
-                                      "not ported")
+        if spec.kind not in KINDS:
+            raise ValueError(f"unknown unit kind {spec.kind!r}")
 
+
+def _kind_member_index(cfg: ArchConfig) -> dict:
+    """member position -> its index among the unit's members of its kind
+    (the cache stacks each kind apart)."""
+    counters: dict[str, int] = {}
+    out = {}
+    for i, spec in enumerate(cfg.unit_pattern):
+        out[i] = counters.get(spec.kind, 0)
+        counters[spec.kind] = out[i] + 1
+    return out
+
+
+def _kind_counts(cfg: ArchConfig) -> dict:
+    counts: dict[str, int] = {}
+    for spec in cfg.unit_pattern:
+        counts[spec.kind] = counts.get(spec.kind, 0) + 1
+    return counts
+
+
+# -- init ---------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from ``torch.Generator(seed)`` on ``device``,
-    drawn in float32 and cast to ``cfg.param_dtype``, at the reference's
-    scales.  Dense attention units only.  On the ``meta`` device nothing
-    is drawn: the tree's shapes alone (a parameter count at full width)."""
-    _check_ported(cfg)
+    drawn in float32 and cast to ``cfg.param_dtype`` (MoE routers and the
+    xLSTM gate weights stay float32, as in the reference), at the
+    reference's scales and constants.  On the ``meta`` device nothing is
+    drawn: the tree's shapes alone (a parameter count at full width)."""
+    _check_kinds(cfg)
     dev = torch.device("cpu" if device is None else device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(seed)
     dt = getattr(torch, cfg.param_dtype)
+    f32 = torch.float32
     d, H, KV, hd, n = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
         cfg.n_units
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         # scaled in place: no second copy of a leaf as large as 8.4 GiB
         x = torch.randn(shape, generator=gen, device=dev)
-        return x.mul_(scale).to(dt)
+        return x.mul_(scale).to(dtype)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=dev)
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=dev)
 
-    def member():
-        attn = {"wq": normal((n, d, H, hd), d ** -0.5),
-                "wk": normal((n, d, KV, hd), d ** -0.5),
-                "wv": normal((n, d, KV, hd), d ** -0.5),
-                "wo": normal((n, H, hd, d), (H * hd) ** -0.5)}
+    def mlp(d_ff, act):
+        p = {"w_up": normal((n, d, d_ff), d ** -0.5),
+             "w_down": normal((n, d_ff, d), d_ff ** -0.5)}
+        if act == "swiglu":
+            p["w_gate"] = normal((n, d, d_ff), d ** -0.5)
+        return p
+
+    def attn():
+        p = {"wq": normal((n, d, H, hd), d ** -0.5),
+             "wk": normal((n, d, KV, hd), d ** -0.5),
+             "wv": normal((n, d, KV, hd), d ** -0.5),
+             "wo": normal((n, H, hd, d), (H * hd) ** -0.5)}
         if cfg.qk_norm:
-            attn["q_norm"] = {"scale": ones(n, hd)}
-            attn["k_norm"] = {"scale": ones(n, hd)}
-        mlp = {"w_up": normal((n, d, cfg.d_ff), d ** -0.5),
-               "w_down": normal((n, cfg.d_ff, d), cfg.d_ff ** -0.5)}
-        if cfg.act == "swiglu":
-            mlp["w_gate"] = normal((n, d, cfg.d_ff), d ** -0.5)
-        return {"norm1": {"scale": ones(n, d)}, "attn": attn,
-                "norm2": {"scale": ones(n, d)}, "mlp": mlp}
+            p["q_norm"] = {"scale": full((n, hd), 1.0)}
+            p["k_norm"] = {"scale": full((n, hd), 1.0)}
+        return p
+
+    def mamba():
+        di, ds, dr = cfg.d_inner, cfg.ssm_d_state, cfg.dt_rank
+        a_log = torch.log(torch.arange(1, ds + 1, dtype=f32, device=dev))
+        return {"in_proj": normal((n, d, 2 * di), d ** -0.5),
+                "conv_w": normal((n, cfg.ssm_conv, di), 0.5),
+                "conv_b": full((n, di), 0.0),
+                "x_proj": normal((n, di, dr + 2 * ds), di ** -0.5),
+                "dt_proj": normal((n, dr, di), dr ** -0.5),
+                "dt_bias": full((n, di), -4.6),     # softplus^-1(~0.01)
+                "A_log": a_log.repeat(n, di, 1).to(dt),
+                "D": full((n, di), 1.0),
+                "out_proj": normal((n, di, d), di ** -0.5)}
+
+    def mlstm():
+        di = xlstm.mlstm_inner(cfg)
+        b_if = torch.cat([torch.zeros(H, device=dev),
+                          torch.full((H,), 3.0, device=dev)])
+        return {"up": normal((n, d, 2 * di), d ** -0.5),
+                "wq": normal((n, di, di), di ** -0.5),
+                "wk": normal((n, di, di), di ** -0.5),
+                "wv": normal((n, di, di), di ** -0.5),
+                "w_if": normal((n, di, 2 * H), di ** -0.5, f32),
+                "b_if": b_if.repeat(n, 1),
+                "down": normal((n, di, d), di ** -0.5)}
+
+    def slstm():
+        dh = d // H
+        return {"w_in": normal((n, d, 4 * d), d ** -0.5),
+                "r": normal((n, 4, H, dh, dh), dh ** -0.5),
+                "b": full((n, 4 * d), 0.0, f32),
+                "down": normal((n, d, d), d ** -0.5)}
+
+    def moe_ffn():
+        E, ffe = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+        p = {"router": normal((n, d, E), d ** -0.5, f32),
+             "w_gate": normal((n, E, d, ffe), d ** -0.5),
+             "w_up": normal((n, E, d, ffe), d ** -0.5),
+             "w_down": normal((n, E, ffe, d), ffe ** -0.5)}
+        if cfg.n_shared_experts:
+            p["shared"] = mlp(cfg.n_shared_experts * ffe, "swiglu")
+        return p
+
+    blocks = {"attn": attn, "mamba": mamba, "mlstm": mlstm, "slstm": slstm}
+
+    def member(spec: LayerSpec):
+        p = {"norm1": {"scale": full((n, d), 1.0)},
+             spec.kind: blocks[spec.kind]()}
+        if spec.ffn:
+            p["norm2"] = {"scale": full((n, d), 1.0)}
+            if spec.moe:
+                p["moe"] = moe_ffn()
+            else:
+                p["mlp"] = mlp(cfg.d_ff, cfg.act)
+        return p
 
     params = {
         "embed": {"table": normal((cfg.vocab, d), 0.02)},
-        "units": {f"m{i}": member() for i in range(len(cfg.unit_pattern))},
-        "final_norm": {"scale": ones(d)},
+        "units": {f"m{i}": member(spec)
+                  for i, spec in enumerate(cfg.unit_pattern)},
+        "final_norm": {"scale": full((d,), 1.0)},
     }
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": normal((d, cfg.vocab), d ** -0.5)}
@@ -99,49 +180,80 @@ def _unembed_p(params: dict) -> dict:
     return params.get("unembed") or {"w": params["embed"]["table"].T}
 
 
-def _ffn(mp: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig):
+    """The member's FFN sub-block: (x + ffn(x), the MoE aux loss or None)."""
+    if not spec.ffn:
+        return x, None
     h2 = layers.rmsnorm(mp["norm2"], x, cfg.norm_eps)
-    return x + layers.mlp(mp["mlp"], h2, cfg.act)
+    if spec.moe:
+        y, aux = moe.moe_apply(mp["moe"], h2, cfg)
+        return x + y, aux
+    return x + layers.mlp(mp["mlp"], h2, cfg.act), None
 
 
 def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """One unit over the full sequence; returns float32 (promoted)."""
-    for i, _ in enumerate(cfg.unit_pattern):
+                      positions: torch.Tensor):
+    """One unit over the full sequence: (x, promoted to float32 by the
+    float32 blocks; the unit's aux loss, float32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, spec in enumerate(cfg.unit_pattern):
         mp = unit_p[f"m{i}"]
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
-        x = x + attention.attn_forward(mp["attn"], h, cfg, positions,
-                                       window=cfg.sliding_window)
-        x = _ffn(mp, x, cfg)
-    return x
+        if spec.kind == "attn":
+            x = x + attention.attn_forward(mp["attn"], h, cfg, positions,
+                                           window=cfg.sliding_window)
+        elif spec.kind == "mamba":
+            x = x + ssm.mamba_forward(mp["mamba"], h, cfg)
+        elif spec.kind == "mlstm":
+            x = x + xlstm.mlstm_forward(mp["mlstm"], h, cfg)
+        elif spec.kind == "slstm":
+            x = x + xlstm.slstm_forward(mp["slstm"], h, cfg)
+        x, a = _ffn(mp, spec, x, cfg)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _backbone_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
+    """The train path: (final hidden states (B, S, d) after the final
+    norm, the MoE aux loss summed over units in float32)."""
+    x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for u in range(cfg.n_units):
+        x, a = _apply_unit_train(x, _index(params["units"], u), cfg,
+                                 positions)
+        x = x.to(torch.bfloat16)
+        aux = aux + a
+    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
 def hidden_states(params: dict, tokens: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
     """The train path's final hidden states (B, S, d), after the final
     norm."""
-    x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    for u in range(cfg.n_units):
-        x = _apply_unit_train(x, _index(params["units"], u), cfg,
-                              positions).to(torch.bfloat16)
-    return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _backbone_train(params, tokens, cfg)[0]
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy; batch = {tokens, labels} (B, S)."""
-    h = hidden_states(params, batch["tokens"], cfg)
-    return layers.xent_loss(_unembed_p(params), h, batch["labels"],
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
+    """Mean next-token cross entropy plus the MoE aux loss; batch =
+    {tokens, labels} (B, S).  Returns ``(loss + aux, {"xent": loss,
+    "aux": aux})`` as the reference does; a model without MoE has aux 0,
+    and ``loss + 0`` is ``loss`` bit for bit."""
+    h, aux = _backbone_train(params, batch["tokens"], cfg)
+    loss = layers.xent_loss(_unembed_p(params), h, batch["labels"],
                             cfg.loss_chunk)
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 def value_and_grad(params: dict, batch: dict, cfg: ArchConfig
                    ) -> tuple[torch.Tensor, dict]:
-    """(loss, grads) with grads the same tree of float32 tensors."""
+    """(loss + aux, grads) with grads the same tree of tensors, what the
+    reference's ``make_grad_fn`` reports."""
     flat = layout_lib.flatten(params)
     paths = [p for p, _ in flat]
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
-    loss = loss_fn(layout_lib.unflatten(paths, leaves), batch, cfg)
+    loss, _ = loss_fn(layout_lib.unflatten(paths, leaves), batch, cfg)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), layout_lib.unflatten(paths, grads)
 
@@ -154,29 +266,96 @@ def param_count(params: dict) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Decode cache sized for ``seq_len`` tokens of context: a ring of the
-    window's size if ``cfg.sliding_window`` is smaller.  The reference's
-    tree: ``{"pos": 0-d int32, "attn": {"k", "v", "pos_arr"}}``."""
-    _check_ported(cfg)
-    cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "attn": attention.cache_init(cfg, batch, cap, cfg.n_units,
-                                         len(cfg.unit_pattern), dtype,
-                                         device)}
+    """Decode cache sized for ``seq_len`` tokens of context, the
+    reference's tree: ``pos`` (0-d int32), and for each kind of member in
+    the unit a stack ``(n_units, members of the kind, ...)``:
+    ``attn.{k, v, pos_arr}`` (in ``dtype``; a ring of the window's size if
+    ``cfg.sliding_window`` is smaller), ``mamba.{conv, ssm}``,
+    ``mlstm.{C, n}`` and ``slstm.{h, c, n, m}`` (float32)."""
+    _check_kinds(cfg)
+    counts = _kind_counts(cfg)
+    n = cfg.n_units
+    cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if "attn" in counts:
+        cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+            else seq_len
+        cache["attn"] = attention.cache_init(cfg, batch, cap, n,
+                                             counts["attn"], dtype, device)
+    if "mamba" in counts:
+        cache["mamba"] = ssm.mamba_cache_init(cfg, batch, n, counts["mamba"],
+                                              device=device)
+    if "mlstm" in counts:
+        H = cfg.n_heads
+        dh = xlstm.mlstm_inner(cfg) // H
+        shape = (n, counts["mlstm"], batch, H, dh)
+        cache["mlstm"] = {
+            "C": torch.zeros(shape + (dh,), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros(shape, dtype=torch.float32, device=device)}
+    if "slstm" in counts:
+        H = cfg.n_heads
+        shape = (n, counts["slstm"], batch, H, cfg.d_model // H)
+        cache["slstm"] = {
+            k: torch.full(shape, -1e9 if k == "m" else 0.0,
+                          dtype=torch.float32, device=device)
+            for k in ("h", "c", "n", "m")}
+    return cache
+
+
+def _serve_member(kind: str, p: dict, h: torch.Tensor, cfg: ArchConfig,
+                  st: dict, pos) -> torch.Tensor:
+    """One member's block on the serve path against its state ``st`` (the
+    cache's views for this unit and member, updated in place): prefill
+    when ``pos`` is None, else one decode step at position ``pos``."""
+    window = cfg.sliding_window
+    if kind == "attn":
+        if pos is None:
+            out, *_ = attention.attn_prefill(p, h, cfg, st["k"], st["v"],
+                                             st["pos_arr"], window=window)
+        else:
+            out, *_ = attention.attn_decode(p, h, cfg, st["k"], st["v"],
+                                            st["pos_arr"], pos, window=window)
+        return out
+    if kind == "mamba":
+        if pos is None:
+            out, conv, h_ssm = ssm.mamba_prefill(p, h, cfg)
+        else:
+            out, conv, h_ssm = ssm.mamba_decode(
+                p, h, st["conv"].to(h.dtype), st["ssm"], cfg)
+        st["conv"].copy_(conv)
+        st["ssm"].copy_(h_ssm)
+        return out
+    if kind == "mlstm":
+        if pos is None:
+            out, (C, n) = xlstm.mlstm_forward(p, h, cfg, return_state=True)
+        else:
+            out, C, n = xlstm.mlstm_decode(p, h, st["C"], st["n"], cfg)
+        st["C"].copy_(C)
+        st["n"].copy_(n)
+        return out
+    names = ("h", "c", "n", "m")
+    if pos is None:
+        out, new = xlstm.slstm_forward(p, h, cfg, return_state=True)
+    else:
+        out, new = xlstm.slstm_decode(p, h, tuple(st[k] for k in names), cfg)
+    for k, v in zip(names, new):
+        st[k].copy_(v)
+    return out
 
 
 def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-           attend) -> torch.Tensor:
-    """Run every unit of the serve path; ``attend(attn_p, h, k, v,
-    pos_arr)`` is the attention sub-block against one member's cache."""
-    ca = cache["attn"]
+           pos) -> torch.Tensor:
+    """Every unit of the serve path: a prefill when ``pos`` is None, else
+    one decode step at position ``pos``.  Returns the last position's
+    logits (B, V)."""
+    kmi = _kind_member_index(cfg)
     for u in range(cfg.n_units):
-        for i, _ in enumerate(cfg.unit_pattern):
+        for i, spec in enumerate(cfg.unit_pattern):
             mp = _index(params["units"][f"m{i}"], u)
             h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
-            out, *_ = attend(mp["attn"], h, ca["k"][u, i], ca["v"][u, i],
-                             ca["pos_arr"][u, i])
-            x = _ffn(mp, x + out, cfg)
+            st = {k: v[u, kmi[i]] for k, v in cache[spec.kind].items()}
+            x = x + _serve_member(spec.kind, mp[spec.kind], h, cfg, st, pos)
+            x, _ = _ffn(mp, spec, x, cfg)
     h = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return layers.unembed(_unembed_p(params), h)[:, 0]
 
@@ -191,10 +370,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     """
     tokens = batch["tokens"]
     x = layers.embed(params["embed"], tokens)
-    window = cfg.sliding_window
-    logits = _serve(params, x, cfg, cache,
-                    lambda p, h, k, v, parr: attention.attn_prefill(
-                        p, h, cfg, k, v, parr, window=window))
+    logits = _serve(params, x, cfg, cache, None)
     cache["pos"] = torch.full((), tokens.shape[1], dtype=torch.int32,
                               device=tokens.device)
     return logits, cache
@@ -210,9 +386,6 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """
     x = layers.embed(params["embed"], tokens)
     pos = cache["pos"]
-    window = cfg.sliding_window
-    logits = _serve(params, x, cfg, cache,
-                    lambda p, h, k, v, parr: attention.attn_decode(
-                        p, h, cfg, k, v, parr, pos, window=window))
+    logits = _serve(params, x, cfg, cache, pos)
     cache["pos"] = pos + 1
     return logits, cache

@@ -553,3 +553,64 @@ def test_serve_on_the_card_matches_the_cpu(dev, arch):
     assert torch.equal(caches[1]["attn"]["pos_arr"].cpu(),
                        caches[0]["attn"]["pos_arr"])
     assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == 20
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "xlstm-350m", "jamba-v0.1-52b"])
+def test_moe_and_recurrent_on_the_card_match_the_cpu(dev, arch):
+    """The MoE and recurrent smoke configs on the card and on the CPU from
+    the same weights, TF32 off: the loss (cross entropy plus the MoE aux
+    term) within rtol 1e-4, as a float32 last bit may flip a bfloat16
+    rounding of the residual stream; prefill logits within 1e-4 of the
+    largest (float32 states on both); 12 teacher-forced decode steps
+    within one bfloat16 step (2**-8) of the largest logit, as in
+    ``test_serve_on_the_card_matches_the_cpu``; the recurrent states after
+    the last step within 1e-3 of their largest value."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as tt
+
+    cfg = configs.get_smoke(arch)
+    cpu = tt.init_params(cfg, seed=0)
+    card = L.tree_map(lambda x: x.to(dev), cpu)
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(3))
+    labels = torch.randint(0, cfg.vocab, (2, 20),
+                           generator=torch.Generator().manual_seed(4))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            losses = [tt.loss_fn(p, {"tokens": toks.to(d),
+                                     "labels": labels.to(d)}, cfg)
+                      for p, d in ((cpu, "cpu"), (card, dev))]
+            np.testing.assert_allclose(float(losses[1][0]),
+                                       float(losses[0][0]), rtol=1e-4)
+            np.testing.assert_allclose(float(losses[1][1]["aux"]),
+                                       float(losses[0][1]["aux"]), rtol=1e-4)
+            caches = [tt.init_cache(cfg, 2, 24, device=d)
+                      for d in ("cpu", dev)]
+            outs = [tt.prefill(p, {"tokens": toks[:, :8].to(d)}, cfg, c)[0]
+                    for p, c, d in zip((cpu, card), caches, ("cpu", dev))]
+            scale = float(outs[0].abs().max())
+            torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-4,
+                                       atol=1e-4 * scale)
+            for t in range(8, 20):
+                outs = [tt.decode_step(p, toks[:, t:t + 1].to(d), cfg, c)[0]
+                        for p, c, d in zip((cpu, card), caches,
+                                           ("cpu", dev))]
+                scale = float(outs[0].abs().max())
+                torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=0,
+                                           atol=2 ** -8 * scale,
+                                           msg=f"pos {t}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for kind in ("mamba", "mlstm", "slstm"):
+        for part, want in caches[0].get(kind, {}).items():
+            want = want[want.abs() < 1e8]         # sLSTM's m starts at -1e9
+            got = caches[1][kind][part].cpu()
+            got = got[got.abs() < 1e8]
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-3 * float(want.abs().max()),
+                                       msg=f"{kind}.{part}")
+    assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == 20

@@ -16,7 +16,6 @@ tolerance of 1e-2 times the leaf's largest gradient.
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro import configs as jconfigs
@@ -152,11 +151,3 @@ def test_mixed_dtype_matmul_promotes_like_jnp(rng):
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-
-
-def test_unported_units_raise():
-    _, tcfg = micro_cfgs()
-    import dataclasses
-    bad = dataclasses.replace(tcfg, unit_pattern=(tmc.LayerSpec("mamba"),))
-    with pytest.raises(NotImplementedError):
-        tt.init_params(bad)

@@ -44,6 +44,7 @@ from repro_torch.convert import numpy_from_tensors, params_from_numpy
 from repro_torch.launch import serve_lm
 from repro_torch.models import config as tmc
 from repro_torch.models import layers as tly
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tt
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -183,6 +184,78 @@ def test_caches_convert_both_ways():
     assert int(back["pos"]) == 5
 
 
+NEW_ARCHS = ("qwen2-moe-a2.7b", "llama4-maverick-400b-a17b", "xlstm-350m",
+             "jamba-v0.1-52b")
+STATE_KINDS = ("mamba", "mlstm", "slstm")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_moe_and_recurrent_prefill_and_decode_match_reference(arch):
+    """Prefill 8 tokens, then 12 teacher-forced decode steps, against the
+    reference, for the MoE and recurrent archs: the logits (rtol 1e-4
+    with a float32 cache, 2**-8 of the largest with the bfloat16 one, as
+    for the dense zoo), and the cache after prefill: the recurrent states
+    (float32 on both sides) within 1e-4 of their largest value, k and v
+    as for the dense zoo.  Both packages drop the same MoE tokens (the
+    same routing, the same capacity), so the published capacity is kept.
+    Then the reference's cache after prefill, converted, carries the
+    port's decode as it carries the reference's: every cache kind crosses
+    the packages."""
+    jcfg, tcfg = jconfigs.get_smoke(arch), tconfigs.get_smoke(arch)
+    jp = reference_params(jcfg)
+    tp = params_from_numpy(jp)
+    toks = tokens(jcfg.vocab)
+    jpre, jdec = jitted(jcfg)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        jc = jt.init_cache(jcfg, 2, 24, jdt)
+        tc = tt.init_cache(tcfg, 2, 24, tdt)
+        want = jax.tree_util.tree_map(np.asarray, jc)
+        got = numpy_from_tensors(tc)
+        assert jax.tree_util.tree_structure(got) == \
+            jax.tree_util.tree_structure(want)
+        for (path, g), (_, w) in zip(
+                jax.tree_util.tree_flatten_with_path(got)[0],
+                jax.tree_util.tree_flatten_with_path(want)[0]):
+            assert (g.shape, g.dtype) == (w.shape, w.dtype), path
+            np.testing.assert_array_equal(g.astype(np.float32),
+                                          w.astype(np.float32))
+        jl, jc = jpre(jp, {"tokens": jnp.asarray(toks[:, :8])}, jc)
+        tl, tc = tt.prefill(tp, {"tokens": torch.from_numpy(toks[:, :8])},
+                            tcfg, tc)
+        np.testing.assert_allclose(to_np(tl), to_np(jl),
+                                   **logit_tol(jl, tcfg, torch.float32))
+        want, got = jax.tree_util.tree_map(np.asarray, jc), \
+            numpy_from_tensors(tc)
+        assert int(got["pos"]) == int(want["pos"]) == 8
+        for kind in STATE_KINDS:
+            for part, w in want.get(kind, {}).items():
+                np.testing.assert_allclose(
+                    got[kind][part], w, rtol=0,
+                    atol=1e-4 * np.abs(w[np.abs(w) < 1e8]).max(),
+                    err_msg=f"{kind}.{part}")
+        if "attn" in want:
+            np.testing.assert_array_equal(got["attn"]["pos_arr"],
+                                          want["attn"]["pos_arr"])
+            for kv in ("k", "v"):
+                w = want["attn"][kv].astype(np.float32)
+                np.testing.assert_allclose(
+                    got["attn"][kv].astype(np.float32), w, rtol=BF16_ULP,
+                    atol=1e-5 * np.abs(w).max())
+        crossed = params_from_numpy(want)
+        for t in range(8, 20):
+            step = toks[:, t:t + 1]
+            jl, jc = jdec(jp, jnp.asarray(step), jc)
+            tl, tc = tt.decode_step(tp, torch.from_numpy(step), tcfg, tc)
+            xl, crossed = tt.decode_step(tp, torch.from_numpy(step), tcfg,
+                                         crossed)
+            for out in (tl, xl):
+                np.testing.assert_allclose(
+                    to_np(out), to_np(jl), **logit_tol(jl, tcfg, tdt),
+                    err_msg=f"{tdt} pos {t}")
+        assert int(tc["pos"]) == int(jc["pos"]) == 20
+
+
 # -- the reference's serve tests, as twins ------------------------------------
 
 def test_decode_matches_forward_dense():
@@ -284,9 +357,12 @@ def test_serve_continues_as_a_fresh_prefill_would():
     decode attends over the bfloat16 cache and the prefill over float32
     k and v; over the five archs and three seeds the gap was at most
     5.4e-3 of the largest logit, so it is held to 1e-2 of it, and the
-    argmax equal (``chip_smoke.py`` holds the full-width runs so)."""
+    argmax equal (``chip_smoke.py`` holds the full-width runs so).  A MoE
+    prefill drops tokens past an expert's capacity and a decode of two
+    tokens never does, so the MoE archs run under no-drop capacity
+    (``moe.no_drop``); the recurrent archs' states are float32."""
     for arch in tconfigs.list_archs():
-        cfg = tconfigs.get_smoke(arch)
+        cfg = tmoe.no_drop(tconfigs.get_smoke(arch))
         params = tt.init_params(cfg, seed=0)
         prompts = torch.randint(0, cfg.vocab, (2, 16),
                                 generator=torch.Generator().manual_seed(1))
@@ -331,3 +407,18 @@ def test_cli_prints_the_references_format(capsys, monkeypatch):
     for ln, seq in zip(got[2:], res.tokens.tolist()):
         assert ln == f"  seq{got[2:].index(ln)}: {seq}"
         assert all(0 <= t < 512 for t in seq)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "xlstm-350m",
+                                  "jamba-v0.1-52b"])
+def test_cli_serves_the_moe_and_recurrent_archs(arch):
+    """``serve_lm --arch`` takes the archs of this slice and prints the
+    reference CLI's format."""
+    got: list[str] = []
+    res = serve_lm.main(["--device", "cpu", "--arch", arch, "--tokens", "3",
+                         "--prompt-len", "5"], log=got.append)
+    assert got[0].startswith(f"{arch}: prefilled 2x5 in ")
+    assert got[0].endswith("s (cache pos 5)")
+    assert re.fullmatch(r"decoded 3 tokens/seq at \d+\.\d ms/token", got[1])
+    assert [ln.split(": ")[0] for ln in got[2:]] == ["  seq0", "  seq1"]
+    assert res.tokens.shape == (2, 3) and int(res.cache["pos"]) == 5 + 2

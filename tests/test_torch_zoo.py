@@ -1,7 +1,11 @@
-"""Port parity for the dense model zoo: configs, parameter trees, layouts,
-parameter counts, and the train path (loss and gradients) of
+"""Port parity for the model zoo: configs, parameter trees, layouts and
+parameter counts of every ported arch (the dense zoo, gpt2s-federated,
+and the MoE and recurrent archs: qwen2-moe-a2.7b, llama4-maverick,
+xlstm-350m, jamba-v0.1-52b), and the train path (loss and gradients) of
 ``repro_torch`` against ``repro`` for qwen3-0.6b, internlm2-1.8b,
-deepseek-7b, glm4-9b and gpt2s-federated.
+deepseek-7b and glm4-9b (the MoE and recurrent archs' train paths are in
+``test_torch_moe.py``, ``test_torch_recurrent.py`` and
+``test_torch_xlstm.py``).
 
 Both packages start from identical weights (``params_from_numpy`` of the
 reference's init) on the smoke configs, plus one case whose ``head_dim``
@@ -40,7 +44,8 @@ from repro_torch.models import layers as tly
 from repro_torch.models import transformer as tt
 
 ARCHS = ("qwen3-0.6b", "internlm2-1.8b", "deepseek-7b", "glm4-9b",
-         "gpt2s-federated")
+         "gpt2s-federated", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+         "xlstm-350m", "jamba-v0.1-52b")
 DENSE = ARCHS[:4]
 LOSS_RTOL = 5e-5
 
@@ -144,20 +149,50 @@ def test_full_configs_match_reference_counts_and_layouts(arch):
         == [(c.path, c.row_start, c.n_rows, c.offset) for c in jl.chunks]
     assert [g.chunk_ids for g in tl.groups] == \
         [g.chunk_ids for g in jl.groups]
-    if arch == "qwen3-0.6b":     # the chip's FetchSGD run on a new family
-        assert (n, tl.num_chunks, len(tl.groups)) == (751_632_384, 55, 23)
+    if arch in FULL_COUNTS:
+        assert n == FULL_COUNTS[arch]
+    if arch in CHIP_RUNS:        # the chip's FetchSGD runs on new families
+        assert (n, tl.num_chunks, len(tl.groups)) == CHIP_RUNS[arch]
 
 
-@pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm", "moe"])
-def test_unported_units_raise(kind):
+# the reference's parameter counts (jax.eval_shape) of the full configs
+FULL_COUNTS = {"qwen2-moe-a2.7b": 14_315_587_584,
+               "llama4-maverick-400b-a17b": 394_672_051_200,
+               "xlstm-350m": 518_640_808,
+               "jamba-v0.1-52b": 51_570_315_264}
+# (d, chunks, groups) of the models the chip runs FetchSGD on
+CHIP_RUNS = {"qwen3-0.6b": (751_632_384, 55, 23),
+             "xlstm-350m": (518_640_808, 70, 66)}
+
+
+def test_qwen2_moe_cut_for_the_chip_matches_reference():
+    """qwen2-moe-a2.7b at 8 of its 24 layers, as the chip trains it with
+    FetchSGD (weights and gradients of 24 layers take 107 GiB): the
+    count, chunks and groups equal the reference's."""
+    jcfg, tcfg = (dataclasses.replace(get("qwen2-moe-a2.7b"), n_layers=8)
+                  for get in (jconfigs.get_config, tconfigs.get_config))
+    jshapes = jax.eval_shape(lambda: jt.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    jl = JL.build_layout(jshapes)
+    tl = TL.build_layout(tt.init_params(tcfg, device="meta"))
+    assert (tl.total, tl.num_chunks, len(tl.groups)) == \
+        (jl.total, jl.num_chunks, len(jl.groups)) == \
+        (5_186_750_464, 317, 24)
+    assert [(c.path, c.row_start, c.n_rows, c.offset) for c in tl.chunks] \
+        == [(c.path, c.row_start, c.n_rows, c.offset) for c in jl.chunks]
+
+
+@pytest.mark.parametrize("kind", ["conv", "rwkv"])
+@pytest.mark.parametrize("entry", ["init_params", "init_cache"])
+def test_unknown_unit_kind_raises(kind, entry):
+    """A unit kind the zoo does not have raises ``ValueError``, as the
+    reference's ``_member_init`` does."""
     _, tcfg = cfg_pair("qwen3-0.6b")
-    spec = tmc.LayerSpec("attn", moe=True) if kind == "moe" \
-        else tmc.LayerSpec(kind)
-    bad = dataclasses.replace(tcfg, unit_pattern=(spec,))
-    for call in (lambda: tt.init_params(bad),
-                 lambda: tt.init_cache(bad, 1, 8)):
-        with pytest.raises(NotImplementedError, match=kind):
-            call()
+    bad = dataclasses.replace(tcfg, unit_pattern=(tmc.LayerSpec(kind),))
+    call = {"init_params": lambda: tt.init_params(bad),
+            "init_cache": lambda: tt.init_cache(bad, 1, 8)}[entry]
+    with pytest.raises(ValueError, match=kind):
+        call()
 
 
 # -- numerics: the train path -------------------------------------------------
