@@ -45,16 +45,18 @@ In order, it
 9. serves the zoo at full width (``serve``): batch 2, a prompt of 64
    and 32 greedy tokens through ``repro_torch.launch.serve_lm.serve`` for
    gpt2s-federated, internlm2-1.8b, qwen3-0.6b, glm4-9b, qwen2-moe-a2.7b,
-   xlstm-350m and jamba-v0.1-52b (16 of its 32 layers, bfloat16), from
-   torch-initialised random weights, each checked against a fresh
-   prefill of the same sequence (a MoE arch on a second run under no-drop
-   capacity), with parameters, cache bytes, prefill seconds, decode
-   ms/token beside its HBM bound, peak memory and a profiled decode step;
-   the ring buffer of qwen3-0.6b (window 32, a prompt of 48) against a big
-   cache; xlstm-350m's recurrent state after a prompt of 136 (longer than
-   the mLSTM's chunk) against a fresh prefill; and 2 rounds of FetchSGD
-   on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24 layers) and xlstm-350m
-   (every kernel's launches counted);
+   xlstm-350m, jamba-v0.1-52b (16 of its 32 layers, bfloat16),
+   whisper-small (1500 frames a request) and pixtral-12b (1024 patches a
+   request), from torch-initialised random weights, each checked against
+   a fresh prefill of the same sequence (a MoE arch on a second run under
+   no-drop capacity), with parameters, cache bytes, prefill seconds,
+   decode ms/token beside its HBM bound, peak memory and a profiled
+   decode step; the ring buffer of qwen3-0.6b (window 32, a prompt of 48)
+   against a big cache; xlstm-350m's recurrent state after a prompt of
+   136 (longer than the mLSTM's chunk) against a fresh prefill; and 2
+   rounds of FetchSGD on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24
+   layers), xlstm-350m, whisper-small and pixtral-12b (8 of its 40
+   layers), every kernel's launches counted;
 10. prints the kernels line, the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -962,7 +964,8 @@ def telemetry_phase(torch, dev, smi_line: str) -> dict:
 
 
 SERVE_ARCHS = ("gpt2s-federated", "internlm2-1.8b", "qwen3-0.6b", "glm4-9b",
-               "qwen2-moe-a2.7b", "xlstm-350m", "jamba-v0.1-52b")
+               "qwen2-moe-a2.7b", "xlstm-350m", "jamba-v0.1-52b",
+               "whisper-small", "pixtral-12b")
 # jamba's 32 layers take 96 GiB in bfloat16: 2 of its 4 units (48.5 GiB)
 SERVE_CUTS = {"jamba-v0.1-52b": dict(n_layers=16)}
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 2, 64, 32
@@ -989,10 +992,17 @@ XLSTM_PROMPT, XLSTM_TOKENS = 136, 16       # longer than the mLSTM's chunk
 # pins each against the reference's layout
 FETCH_LAYOUTS = {"qwen3-0.6b": (751_632_384, 55, 23),
                  "qwen2-moe-a2.7b": (5_186_750_464, 317, 24),
-                 "xlstm-350m": (518_640_808, 70, 66)}
-# qwen2-moe's weights and gradients of 24 layers take 107 GiB: FetchSGD
-# trains 8 of them
-FETCH_CUTS = {"qwen2-moe-a2.7b": dict(n_layers=8)}
+                 "xlstm-350m": (518_640_808, 70, 66),
+                 "whisper-small": (278_482_944, 34, 32),
+                 "pixtral-12b": (3_549_516_800, 221, 21)}
+# qwen2-moe's weights and gradients of 24 layers take 107 GiB, pixtral's
+# of 40 layers 91 GiB: FetchSGD trains 8 of each
+FETCH_CUTS = {"qwen2-moe-a2.7b": dict(n_layers=8),
+              "pixtral-12b": dict(n_layers=8)}
+# a client of the frontend archs trains on its first 4 samples: each adds
+# 1500 encoder positions (whisper) or 1024 patches (pixtral) to its 256
+# tokens
+FETCH_SAMPLES = 4
 
 
 def profile_decode(torch, step, n: int = 2) -> dict:
@@ -1020,14 +1030,17 @@ def profile_decode(torch, step, n: int = 2) -> dict:
 
 
 def fresh_check(torch, dev, arch, cfg, params, prompts, res,
-                transformer, enforce: bool) -> dict:
+                transformer, enforce: bool, extra: dict) -> dict:
     """The last decode step's logits of ``res`` against a fresh prefill of
-    the same sequence; checked when ``enforce``, else only measured."""
+    the same sequence (with the same frames or patches, ``extra``);
+    checked when ``enforce``, else only measured."""
     seq = torch.cat([prompts.to(dev), res.tokens[:, :-1]], dim=1)
+    prefix = extra["patches"].shape[1] if "patches" in extra else 0
     with torch.no_grad():
         fresh, _ = transformer.prefill(
-            params, {"tokens": seq}, cfg,
-            transformer.init_cache(cfg, SERVE_BATCH, seq.shape[1],
+            params, {"tokens": seq,
+                     **{k: v.to(dev) for k, v in extra.items()}}, cfg,
+            transformer.init_cache(cfg, SERVE_BATCH, prefix + seq.shape[1],
                                    device=dev))
     scale = float(fresh.abs().max())
     gap = float((res.logits - fresh).abs().max())
@@ -1065,11 +1078,33 @@ def tree_bytes(tree) -> int:
                for _, t in layout_lib.flatten(tree))
 
 
+def prefill_only_bytes(params) -> int:
+    """Bytes of the weights a decode step does not read: the encoder and
+    the frontend's projection (prefill turns frames or patches into the
+    cache) and the cross-attention's wk and wv (decode reads the cached
+    keys and values)."""
+    from repro_torch.core import layout as layout_lib
+    return sum(t.numel() * t.element_size()
+               for path, t in layout_lib.flatten(params)
+               if path.startswith("enc/") or path == "frontend_proj"
+               or path.endswith(("xattn/wk", "xattn/wv")))
+
+
+def fetch_run(torch, dev, arch, cfg, params, smi_line: str) -> dict:
+    """2 rounds of FetchSGD on ``arch``: through ``run_simulation``, or,
+    for a model with a frontend, whose batch the orchestrator does not
+    build, through ``train_lm.train``'s round."""
+    run = fetchsgd_run if cfg.frontend == "none" else frontend_fetchsgd_run
+    return run(torch, dev, arch, cfg, params, smi_line)
+
+
 def serve_phase(torch, dev, smi_line: str) -> dict:
     """Serving at full width through ``launch/serve_lm.serve`` from
     torch-initialised random weights: batch 2, a prompt of 64 and 32
     greedy tokens for each of ``SERVE_ARCHS`` (jamba cut to 16 of its 32
-    layers), each checked against a fresh prefill of the same sequence (a
+    layers; whisper's requests carry 1500 frames and pixtral's 1024
+    patches, standard normal from the prompts' generator), each checked
+    against a fresh prefill of the same sequence (a
     MoE arch, whose prefill drops tokens past an expert's capacity, on a
     second run under no-drop capacity); the ring buffer at full width
     (qwen3-0.6b, window 32, a prompt of 48, 24 teacher-forced tokens, each
@@ -1077,7 +1112,9 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
     after a prompt of 136 against a fresh prefill; and 2 rounds of
     FetchSGD (2 clients, flat, 5 x 2**20, k = 25,000) through
     ``run_simulation`` on qwen3-0.6b, qwen2-moe-a2.7b (8 of 24 layers) and
-    xlstm-350m, counting every kernel's launches."""
+    xlstm-350m, and through ``train_lm.train``'s round on whisper-small
+    and pixtral-12b (8 of 40 layers), counting every kernel's
+    launches."""
     import dataclasses
     import gc
 
@@ -1103,9 +1140,12 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         n_params = transformer.param_count(params)
         prompts = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                                 generator=gen)
-        serve_lm.serve(cfg, params, prompts, 2, dev)         # warm-up
+        extra = serve_lm.frontend_inputs(cfg, SERVE_BATCH, gen)
+        prefix = extra["patches"].shape[1] if "patches" in extra else 0
+        serve_lm.serve(cfg, params, prompts, 2, dev, **extra)  # warm-up
         ops.reset_launch_counts()
-        res = serve_lm.serve(cfg, params, prompts, SERVE_TOKENS, dev)
+        res = serve_lm.serve(cfg, params, prompts, SERVE_TOKENS, dev,
+                             **extra)
         check(not any(ops.launch_counts().values()),
               f"{arch}: serving launches no sketch kernel")
         check(bool(torch.isfinite(res.logits).all())
@@ -1117,22 +1157,26 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         nodrop = moe.no_drop(cfg)
         enforce = arch not in CHECK_CUTS
         published = fresh_check(torch, dev, arch, cfg, params, prompts, res,
-                                transformer, enforce and nodrop is cfg)
+                                transformer, enforce and nodrop is cfg,
+                                extra)
         checked = published
         if nodrop is not cfg:
             res_nd = serve_lm.serve(nodrop, params, prompts, SERVE_TOKENS,
-                                    dev, cache_dtype=torch.float32)
+                                    dev, cache_dtype=torch.float32, **extra)
             checked = fresh_check(torch, dev, arch, nodrop, params, prompts,
-                                  res_nd, transformer, enforce)
+                                  res_nd, transformer, enforce, extra)
             del res_nd
         cache = {k: v for k, v in res.cache.items() if k != "pos"}
         cache_bytes = tree_bytes(cache)
         # the least a decode step reads: every weight once but the
-        # embedding's unused rows, the attention slots that hold a token,
-        # and each recurrent state read and written once.  Under capacity
-        # dispatch every expert runs on its slots, so every expert's
-        # weights count.
-        p_bytes = param_bytes = tree_bytes(params)
+        # embedding's unused rows and the weights only a prefill reads
+        # (the encoder, the frontend's projection, the cross-attention's
+        # wk and wv), the attention slots that hold a token, the
+        # cross-attention cache once, and each recurrent state read and
+        # written once.  Under capacity dispatch every expert runs on its
+        # slots, so every expert's weights count.
+        param_bytes = tree_bytes(params)
+        p_bytes = param_bytes - prefill_only_bytes(params)
         table = params["embed"]["table"]
         if "unembed" in params:
             p_bytes -= (table.shape[0] - SERVE_BATCH) * table.shape[1] \
@@ -1141,18 +1185,23 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         if "attn" in cache:
             k = cache["attn"]["k"]
             kv_slot = 2 * k[:, :, :, 0].numel() * k.element_size()
-            kv_bytes = kv_slot * (SERVE_PROMPT + SERVE_TOKENS / 2)
+            kv_bytes = kv_slot * (prefix + SERVE_PROMPT + SERVE_TOKENS / 2)
+        xattn_bytes = tree_bytes(cache["xattn"]) if "xattn" in cache else 0
         state_bytes = sum(tree_bytes(cache[kind])
                           for kind in ("mamba", "mlstm", "slstm")
                           if kind in cache)
-        bound_ms = (p_bytes + kv_bytes + 2 * state_bytes) \
+        bound_ms = (p_bytes + kv_bytes + xattn_bytes + 2 * state_bytes) \
             / HBM_BYTES_PER_S * 1e3
         tok = res.tokens[:, -1:]
         prof = profile_decode(torch, lambda: transformer.decode_step(
             params, tok, cfg, res.cache))
         run = dict(arch=arch, cut=cut or None, param_dtype=cfg.param_dtype,
                    params=n_params, param_bytes=param_bytes,
+                   decode_weight_bytes=p_bytes, prefix=prefix,
+                   frontend_inputs={k: list(v.shape)
+                                    for k, v in extra.items()} or None,
                    cache_bytes=cache_bytes, state_bytes=state_bytes,
+                   xattn_cache_bytes=xattn_bytes,
                    prefill_s=res.prefill_s,
                    decode_ms_per_token=res.decode_s * 1e3,
                    hbm_bound_ms_per_token=bound_ms,
@@ -1182,25 +1231,25 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         if arch == "xlstm-350m":
             xl = xlstm_check(torch, dev, cfg, params, transformer)
         if arch in FETCH_LAYOUTS and arch not in FETCH_CUTS:
-            fetch[arch] = fetchsgd_run(torch, dev, arch, cfg, params,
-                                       smi_line)
+            fetch[arch] = fetch_run(torch, dev, arch, cfg, params, smi_line)
         del params, table
         if arch in CHECK_CUTS:
             fresh_memory()
             ccfg = moe.no_drop(dataclasses.replace(cfg, **CHECK_CUTS[arch]))
             cparams = transformer.init_params(ccfg, seed=0, device=dev)
             res = serve_lm.serve(ccfg, cparams, prompts, SERVE_TOKENS, dev,
-                                 cache_dtype=torch.float32)
+                                 cache_dtype=torch.float32, **extra)
             run["check"] = fresh_check(torch, dev, arch, ccfg, cparams,
-                                       prompts, res, transformer, True)
+                                       prompts, res, transformer, True,
+                                       extra)
             run["check_cut"] = CHECK_CUTS[arch]
             del res, cparams
         if arch in FETCH_CUTS:
             fresh_memory()
             fcfg = dataclasses.replace(cfg, **FETCH_CUTS[arch])
             fparams = transformer.init_params(fcfg, seed=0, device=dev)
-            fetch[arch] = fetchsgd_run(torch, dev, arch, fcfg, fparams,
-                                       smi_line)
+            fetch[arch] = fetch_run(torch, dev, arch, fcfg, fparams,
+                                    smi_line)
             fetch[arch]["cut"] = FETCH_CUTS[arch]
             del fparams
     return dict(runs=runs, ring=ring, xlstm_state=xl, fetchsgd=fetch)
@@ -1346,6 +1395,88 @@ def fetchsgd_run(torch, dev, arch, cfg, params, smi_line: str) -> dict:
                 aux_check=dict(client=small, xent=float(metrics["xent"]),
                                aux=aux),
                 traffic=res.traffic)
+
+
+def frontend_fetchsgd_run(torch, dev, arch, cfg, params,
+                          smi_line: str) -> dict:
+    """2 rounds of FetchSGD on a model with a frontend at full width, in
+    the round of ``launch/train_lm.train`` (``value_and_grad`` ->
+    ``sketch_grads`` -> the mean -> ``server_step`` -> ``apply_delta``):
+    2 clients a round, PersonaLM at seq 256, each client's first
+    ``FETCH_SAMPLES`` samples with frames or patches drawn standard normal
+    from a seeded generator, the main path's sketch; every kernel's
+    launches counted."""
+    from repro_torch.core import compression, fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.data import federated, synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.optim import linear_decay
+
+    d, n_chunks, n_groups = FETCH_LAYOUTS[arch]
+    lay = layout_lib.build_layout(params)
+    check((lay.total, lay.num_chunks, len(lay.groups))
+          == (d, n_chunks, n_groups),
+          f"{arch}: d = {d:,} in {n_chunks} chunks / {n_groups} groups")
+    rounds, cpr = 2, 2
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256, n_clients=24)
+    gen = torch.Generator().manual_seed(6)
+    lr_fn = linear_decay(0.16, rounds)
+    opt = F.init_state(fs_cfg, dev)
+    meter = compression.TrafficMeter(d=lay.total)
+    losses, seconds, samples, table_bytes = [], [], [], set()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables, round_losses = [], []
+        for c in federated.sample_clients(dataset.n_clients, cpr, r):
+            batch = federated.to_batch(dataset.client_batch(int(c)), dev)
+            batch = {k: v[:FETCH_SAMPLES] for k, v in batch.items()}
+            n = batch["tokens"].shape[0]
+            batch.update({k: v.to(dev) for k, v in
+                          serve_lm.frontend_inputs(cfg, n, gen).items()})
+            loss, g = transformer.value_and_grad(params, batch, cfg)
+            tables.append(F.sketch_grads(g, lay, fs_cfg))
+            del g
+            round_losses.append(float(loss))
+            samples.append(n)
+        table_bytes |= {t.numel() * t.element_size() for t in tables}
+        agg = sum(tables) / len(tables)
+        delta, opt = F.server_step(
+            agg, opt, torch.full((), lr_fn(r), dtype=torch.float32,
+                                 device=dev), lay, fs_cfg)
+        F.apply_delta(params, lay, delta)
+        meter.record(compression.fetchsgd_round(
+            ROWS, COLS, K, d=lay.total, staleness=max(r, 1)), cpr)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(round_losses)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{arch} fetchsgd: losses {losses}; samples a client {samples}; "
+          f"s/round {seconds}; peak {peak:.3f} GiB; launches {counts} "
+          f"({smi_line})")
+    check(counts == {"encode": n_chunks * cpr * rounds,
+                     "estimate": n_chunks * rounds,
+                     "momentum_error": rounds, "topk_mask": rounds},
+          f"{arch}: {n_chunks} encodes a client, {n_chunks} estimates, 1 "
+          f"momentum_error and 1 topk_mask a round")
+    check(all(math.isfinite(x) for rl in losses for x in rl),
+          f"{arch}: every loss finite")
+    up = ROWS * COLS * 4
+    check(table_bytes == {up} and F.upload_bytes(fs_cfg) == up
+          and meter.upload_total == up * cpr * rounds,
+          f"{arch}: {up:,} B ({up / 1e6:.2f} MB) up a client a round")
+    return dict(rounds=rounds, clients_per_round=cpr, d=lay.total,
+                chunks=lay.num_chunks, groups=len(lay.groups),
+                samples_per_client=samples, losses=losses, seconds=seconds,
+                peak_mem_gib=peak, launches=counts,
+                upload_bytes_per_client=up,
+                traffic=meter.compression(cpr))
 
 
 def main() -> int:

@@ -1,8 +1,7 @@
 """Architecture registry (port of ``repro.configs``).
 
 The zoo and the paper's own model, ``gpt2s-federated``, in the
-reference's order (the encoder-decoder and multimodal archs,
-whisper-small and pixtral-12b, are not ported yet).
+reference's order.
 ``get_config(name)`` returns the full ArchConfig; ``get_smoke(name)`` the
 reduced same-family variant.
 """
@@ -15,7 +14,9 @@ from repro_torch.models.config import ArchConfig
 
 ARCHS = (
     "qwen2-moe-a2.7b",
+    "whisper-small",
     "xlstm-350m",
+    "pixtral-12b",
     "llama4-maverick-400b-a17b",
     "deepseek-7b",
     "qwen3-0.6b",

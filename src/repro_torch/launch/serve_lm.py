@@ -5,7 +5,12 @@ zoo prefills a batch of prompts and greedily decodes continuations
 through the KV and recurrent-state cache (``models.transformer``'s
 ``init_cache`` / ``prefill`` / ``decode_step``).  The command line runs
 the reduced (smoke) config of an arch; :func:`serve` takes any config and
-parameters.
+parameters.  whisper-small's batch carries frame embeddings and
+pixtral-12b's patch embeddings (:func:`frontend_inputs`); the reference
+example feeds zeros, the port standard-normal values from a seeded
+``torch.Generator``.  The cache of a vision model holds its patch prefix
+as well as the prompt and the new tokens (the reference example leaves
+the prefix out of the cache's size, so its decode overwrites live slots).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
 """
@@ -31,29 +36,54 @@ class ServeResult:
     decode_s: float         # seconds per decode step, ended by a device sync
 
 
+def frontend_inputs(cfg, batch: int, generator: torch.Generator) -> dict:
+    """The stub frontend's inputs of ``batch`` requests, standard normal
+    from ``generator`` (on the CPU): ``frames`` (batch, enc_seq, d) for an
+    encoder-decoder, ``patches`` (batch, n_patches, d) for a vision model,
+    nothing otherwise."""
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=generator)
+    if cfg.frontend == "vision":
+        out["patches"] = torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                     generator=generator)
+    return out
+
+
 def serve(cfg, params: dict, prompts: torch.Tensor, n_tokens: int,
-          device=None, cache_dtype=torch.bfloat16) -> ServeResult:
+          device=None, cache_dtype=torch.bfloat16, frames=None,
+          patches=None) -> ServeResult:
     """Prefill ``prompts`` (B, S) and decode ``n_tokens`` greedy tokens:
     the first from the prefill's logits, the others from ``n_tokens - 1``
     decode steps.  ``params`` lie on ``device`` (``cuda`` unless asked
-    otherwise); the cache is sized for ``S + n_tokens`` positions (a ring
-    of the window's size if the config has a smaller sliding window) and
-    holds k and v in ``cache_dtype`` (recurrent states are float32)."""
+    otherwise).  An encoder-decoder takes ``frames`` (B, enc_seq, d), a
+    vision model ``patches`` (B, P, d).  The cache is sized for
+    ``P + S + n_tokens`` positions (a ring of the window's size if the
+    config has a smaller sliding window) and holds k and v in
+    ``cache_dtype`` (recurrent states are float32)."""
     device = resolve_device(device)
     prompts = prompts.to(device)
     B, S = prompts.shape
+    batch = {"tokens": prompts}
+    for key, x, needed in (("frames", frames, cfg.is_encdec),
+                           ("patches", patches, cfg.frontend == "vision")):
+        if needed and x is None:
+            raise ValueError(f"{cfg.name} takes {key}")
+        if needed:
+            batch[key] = x.to(device)
+    prefix = patches.shape[1] if "patches" in batch else 0
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     with torch.no_grad():
-        cache = transformer.init_cache(cfg, B, S + n_tokens, cache_dtype,
-                                       device)
+        cache = transformer.init_cache(cfg, B, prefix + S + n_tokens,
+                                       cache_dtype, device)
         sync()
         t0 = time.perf_counter()
-        logits, cache = transformer.prefill(params, {"tokens": prompts}, cfg,
-                                            cache)
+        logits, cache = transformer.prefill(params, batch, cfg, cache)
         sync()
         prefill_s = time.perf_counter() - t0
         tok = logits.argmax(dim=-1, keepdim=True)
@@ -86,9 +116,11 @@ def main(argv=None, log=print) -> ServeResult:
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                             generator=gen)
-    res = serve(cfg, params, prompts, args.tokens, device)
+    extra = frontend_inputs(cfg, args.batch, gen)
+    res = serve(cfg, params, prompts, args.tokens, device, **extra)
+    prefix = extra["patches"].shape[1] if "patches" in extra else 0
     log(f"{args.arch}: prefilled {args.batch}x{args.prompt_len} in "
-        f"{res.prefill_s:.2f}s (cache pos {args.prompt_len})")
+        f"{res.prefill_s:.2f}s (cache pos {prefix + args.prompt_len})")
     log(f"decoded {args.tokens} tokens/seq at {res.decode_s * 1e3:.1f} "
         f"ms/token")
     for i, seq in enumerate(res.tokens.tolist()):

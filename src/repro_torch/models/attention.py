@@ -1,7 +1,7 @@
-"""GQA self-attention: RoPE, qk-norm, sliding window, chunked softmax, KV
-cache.
+"""GQA attention: RoPE, qk-norm, sliding window, chunked softmax, KV
+cache, and whisper's cross-attention.
 
-Port of ``repro.models.attention`` but its cross-attention.  Weights keep
+Port of ``repro.models.attention``.  Weights keep
 the reference's layout: ``wq/wk/wv`` are ``(d, heads, hd)`` and ``wo`` is
 ``(H, hd, d)``.  Attention is written out as products and a softmax, as the
 reference's ``_attend`` does, with queries taken in blocks of
@@ -10,6 +10,8 @@ reference's ``_attend`` does, with queries taken in blocks of
 The KV cache stores the absolute position of every slot (``pos_arr``, -1 =
 empty), so full and ring-buffer caches share one masking rule: a slot is
 visible iff ``0 <= slot_pos <= q_pos`` (and inside the window, if any).
+Cross-attention (the whisper decoder over the encoder's output) has no
+mask and no RoPE: every query and key sits at position 0.
 Position ``p`` always lives in slot ``p % capacity``, in prefill as in
 decode.  The reference's prefill writes its last ``capacity`` keys into
 slots ``0..capacity-1`` instead; the two agree whenever the prompt fits
@@ -105,15 +107,18 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         use_rope: bool = True):
     q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
     k = layers.einsum("bsd,dhk->bshk", x, p["wk"])
     v = layers.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm and "q_norm" in p:
         q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    return (rope(q, positions, cfg.rope_theta),
-            rope(k, positions, cfg.rope_theta), v)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _out(p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -121,13 +126,16 @@ def _out(p: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor, *, window: int = 0) -> torch.Tensor:
-    """Causal self-attention over the full (possibly banded) sequence for
-    training; x: (B, S, d), positions: (S,) or (B, S)."""
+                 positions: torch.Tensor, *, causal: bool = True,
+                 window: int = 0, use_rope: bool = True) -> torch.Tensor:
+    """Self-attention over the full (possibly banded) sequence for
+    training; x: (B, S, d), positions: (S,) or (B, S).  The whisper
+    encoder's is bidirectional without RoPE (``causal=False,
+    use_rope=False``)."""
     B, S, _ = x.shape
     positions = positions.expand(B, S)
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, positions, positions, causal=True, window=window,
+    q, k, v = _qkv(p, x, cfg, positions, use_rope)
+    o = _attend(q, k, v, positions, positions, causal=causal, window=window,
                 chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype)
     return _out(p, o)
 
@@ -182,3 +190,32 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
                 causal=True, window=window, chunk=cfg.attn_chunk,
                 compute_dtype=cfg.attn_compute_dtype)
     return _out(p, o), cache_k, cache_v, pos_arr
+
+
+# -- cross-attention ----------------------------------------------------------
+
+def cross_kv(p: dict, enc_out: torch.Tensor):
+    """The encoder output's keys and values (B, S_enc, KV, hd), which the
+    serve path computes once a request and caches."""
+    return (layers.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            layers.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+
+
+def cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d) attends over every one of the encoder's keys and
+    values ``k/v`` (B, S_enc, KV, hd): no mask, no RoPE."""
+    B, S, _ = x.shape
+    q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_pos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=x.device)
+    o = _attend(q, k, v, q_pos, k_pos, causal=False, window=0,
+                chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype)
+    return _out(p, o)
+
+
+def cross_attn_forward(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                       cfg: ArchConfig) -> torch.Tensor:
+    """Whisper-style cross-attention of x (B, S, d) over the encoder's
+    output (B, S_enc, d)."""
+    return cross_attend(p, x, *cross_kv(p, enc_out), cfg)

@@ -5,8 +5,7 @@ Port of ``repro.models.config``: a model is ``n_layers`` units of
 as in the reference.  Heterogeneous architectures (jamba's mamba and
 attention interleave, llama4's dense and MoE alternation, xLSTM's mLSTM
 and sLSTM mix) are expressed through the pattern.  Every field keeps the
-reference's name and default; the encoder-decoder and frontend fields are
-not ported yet.
+reference's name and default.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ class LayerSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str             # dense | moe | ssm | hybrid
+    arch_type: str             # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +53,12 @@ class ArchConfig:
                                # (recompute intra-chunk states in backward)
     # xLSTM
     xlstm_proj_factor: float = 2.0
+    # encoder-decoder (whisper): encoder is attn-only, bidirectional
+    enc_layers: int = 0
+    enc_seq: int = 1500        # whisper frame count (stub frontend output)
+    # multimodal stub frontends
+    frontend: str = "none"     # none | audio | vision
+    n_patches: int = 0         # vision prefix length (pixtral)
     # attention variant
     sliding_window: int = 0    # 0 = full attention; >0 = window size
     # numerics
@@ -79,6 +84,10 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.enc_layers > 0
 
     @property
     def d_inner(self) -> int:
@@ -107,6 +116,9 @@ def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:
         n_shared_experts=min(cfg.n_shared_experts, 1),
         expert_top_k=min(cfg.expert_top_k, 2),
         moe_d_ff=min(cfg.moe_d_ff, 256) if cfg.moe_d_ff else 0,
+        enc_layers=min(cfg.enc_layers, 2),
+        enc_seq=min(cfg.enc_seq, 64),
+        n_patches=min(cfg.n_patches, 16),
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
         else 0,
         attn_chunk=64,

@@ -1,9 +1,14 @@
 """Model assembly: init, units, and the train / prefill / decode entry
 points.
 
-Port of ``repro.models.transformer`` but the encoder-decoder and the
-multimodal frontends.  A unit's members are attention, mamba, mLSTM or
-sLSTM blocks, each with a dense or MoE FFN or none.  Parameters are the
+Port of ``repro.models.transformer``.  A unit's members are attention,
+mamba, mLSTM or sLSTM blocks, each with a dense or MoE FFN or none.  The
+stub frontends join the token stream as the reference's do: ``audio``
+(whisper) takes precomputed frame embeddings (B, enc_seq, d) into a
+bidirectional encoder whose output every decoder attention member
+cross-attends to; ``vision`` (pixtral) takes precomputed patch embeddings
+(B, n_patches, d), projected and put before the tokens (prefix fusion;
+no loss on the prefix).  Parameters are the
 reference's tree (nested dicts with units stacked on a leading
 ``(n_units,)`` dim), so the flat layout, and with it every sketch hash,
 matches the JAX package.
@@ -11,15 +16,17 @@ matches the JAX package.
 Dtypes follow the reference's jnp promotion.  On the train path the
 residual stream enters each unit as bfloat16; inside the unit bfloat16
 activations meet float32 weights and promote to float32; the unit's
-output is cast back to bfloat16.  The serve path (``prefill``,
+output is cast back to bfloat16.  The whisper encoder's residual stays
+in the frames' dtype, as in the reference.  The serve path (``prefill``,
 ``decode_step``) keeps the residual in the parameters' dtype, as the
-reference's does; its KV cache is bfloat16 and its recurrent states
-float32.
+reference's does; its KV cache (self- and cross-attention) is bfloat16
+and its recurrent states float32.
 
 Entry points:
 
 * ``loss_fn`` / ``value_and_grad`` — next-token cross entropy plus the
-  MoE routers' auxiliary loss
+  MoE routers' auxiliary loss; a batch holds ``tokens`` and ``labels``,
+  and ``frames`` (audio) or ``patches`` (vision)
 * ``init_cache``, ``prefill`` — forward over the prompt, filling the cache
 * ``decode_step`` — one token against the cache, with no host sync
 """
@@ -60,6 +67,14 @@ def _kind_counts(cfg: ArchConfig) -> dict:
     return counts
 
 
+def _sinusoid(seq: int, d: int, device=None) -> torch.Tensor:
+    """The whisper encoder's sinusoidal positions (seq, d), float32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # -- init ---------------------------------------------------------------------
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
@@ -67,7 +82,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     drawn in float32 and cast to ``cfg.param_dtype`` (MoE routers and the
     xLSTM gate weights stay float32, as in the reference), at the
     reference's scales and constants.  On the ``meta`` device nothing is
-    drawn: the tree's shapes alone (a parameter count at full width)."""
+    drawn: the tree's shapes alone (a parameter count at full width).
+
+    An encoder-decoder also has ``enc`` (``enc_layers`` attention-only
+    units with a dense FFN and no qk-norm, and a final norm) and an
+    ``xnorm`` / ``xattn`` pair in every decoder attention member; a model
+    with a frontend has ``frontend_proj`` (d, d)."""
     _check_kinds(cfg)
     dev = torch.device("cpu" if device is None else device)
     gen = None if dev.type == "meta" else \
@@ -85,19 +105,19 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     def full(shape, value, dtype=dt):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    def mlp(d_ff, act):
+    def mlp(d_ff, act, n=n):
         p = {"w_up": normal((n, d, d_ff), d ** -0.5),
              "w_down": normal((n, d_ff, d), d_ff ** -0.5)}
         if act == "swiglu":
             p["w_gate"] = normal((n, d, d_ff), d ** -0.5)
         return p
 
-    def attn():
+    def attn(n=n, qk_norm=cfg.qk_norm):
         p = {"wq": normal((n, d, H, hd), d ** -0.5),
              "wk": normal((n, d, KV, hd), d ** -0.5),
              "wv": normal((n, d, KV, hd), d ** -0.5),
              "wo": normal((n, H, hd, d), (H * hd) ** -0.5)}
-        if cfg.qk_norm:
+        if qk_norm:
             p["q_norm"] = {"scale": full((n, hd), 1.0)}
             p["k_norm"] = {"scale": full((n, hd), 1.0)}
         return p
@@ -149,6 +169,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     def member(spec: LayerSpec):
         p = {"norm1": {"scale": full((n, d), 1.0)},
              spec.kind: blocks[spec.kind]()}
+        if spec.kind == "attn" and cfg.is_encdec:
+            p["xnorm"] = {"scale": full((n, d), 1.0)}
+            p["xattn"] = attn(qk_norm=False)
         if spec.ffn:
             p["norm2"] = {"scale": full((n, d), 1.0)}
             if spec.moe:
@@ -165,6 +188,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = {"w": normal((d, cfg.vocab), d ** -0.5)}
+    if cfg.is_encdec:
+        ne = cfg.enc_layers
+        params["enc"] = {
+            "units": {"m0": {"norm1": {"scale": full((ne, d), 1.0)},
+                             "attn": attn(ne, qk_norm=False),
+                             "norm2": {"scale": full((ne, d), 1.0)},
+                             "mlp": mlp(cfg.d_ff, cfg.act, ne)}},
+            "final_norm": {"scale": full((d,), 1.0)}}
+    if cfg.frontend in ("audio", "vision"):
+        params["frontend_proj"] = normal((d, d), d ** -0.5)
     return params
 
 
@@ -192,9 +225,11 @@ def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig):
 
 
 def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
-                      positions: torch.Tensor):
+                      positions: torch.Tensor, enc_out):
     """One unit over the full sequence: (x, promoted to float32 by the
-    float32 blocks; the unit's aux loss, float32)."""
+    float32 blocks; the unit's aux loss, float32).  A decoder attention
+    member of an encoder-decoder cross-attends to ``enc_out`` after its
+    self-attention."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.unit_pattern):
         mp = unit_p[f"m{i}"]
@@ -202,6 +237,10 @@ def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
         if spec.kind == "attn":
             x = x + attention.attn_forward(mp["attn"], h, cfg, positions,
                                            window=cfg.sliding_window)
+            if "xattn" in mp:
+                hx = layers.rmsnorm(mp["xnorm"], x, cfg.norm_eps)
+                x = x + attention.cross_attn_forward(mp["xattn"], hx,
+                                                     enc_out, cfg)
         elif spec.kind == "mamba":
             x = x + ssm.mamba_forward(mp["mamba"], h, cfg)
         elif spec.kind == "mlstm":
@@ -214,15 +253,49 @@ def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
     return x, aux
 
 
-def _backbone_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
-    """The train path: (final hidden states (B, S, d) after the final
+def _encoder(params: dict, frames: torch.Tensor,
+             cfg: ArchConfig) -> torch.Tensor:
+    """The whisper encoder: frame embeddings (B, S_enc, d) -> projected,
+    plus sinusoidal positions, through ``enc_layers`` bidirectional
+    attention units without RoPE -> ``enc_out`` (B, S_enc, d) after the
+    encoder's final norm.  The residual stays in the frames' dtype."""
+    x = layers.matmul(frames, params["frontend_proj"])
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    enc = params["enc"]
+    pos = torch.arange(x.shape[1], device=x.device)[None]
+    for u in range(cfg.enc_layers):
+        mp = _index(enc["units"]["m0"], u)
+        h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
+        x = x + attention.attn_forward(mp["attn"], h, cfg, pos, causal=False,
+                                       use_rope=False)
+        h2 = layers.rmsnorm(mp["norm2"], x, cfg.norm_eps)
+        x = x + layers.mlp(mp["mlp"], h2, cfg.act)
+    return layers.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
+    """Token and patch fusion: (x (B, P + S, d) with the projected patch
+    prefix of P = ``batch["patches"].shape[1]`` positions (vision; P = 0
+    otherwise), positions (1, P + S), the encoder's output or None)."""
+    x = layers.embed(params["embed"], batch["tokens"])
+    if cfg.frontend == "vision":
+        patches = layers.matmul(batch["patches"], params["frontend_proj"])
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    enc_out = _encoder(params, batch["frames"], cfg) if cfg.is_encdec \
+        else None
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    return x, positions, enc_out
+
+
+def _backbone_train(params: dict, batch: dict, cfg: ArchConfig):
+    """The train path: (final hidden states (B, P + S, d) after the final
     norm, the MoE aux loss summed over units in float32)."""
-    x = layers.embed(params["embed"], tokens).to(torch.bfloat16)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, positions, enc_out = _embed_inputs(params, batch, cfg)
+    x = x.to(torch.bfloat16)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for u in range(cfg.n_units):
         x, a = _apply_unit_train(x, _index(params["units"], u), cfg,
-                                 positions)
+                                 positions, enc_out)
         x = x.to(torch.bfloat16)
         aux = aux + a
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -230,19 +303,23 @@ def _backbone_train(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
 
 def hidden_states(params: dict, tokens: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    """The train path's final hidden states (B, S, d), after the final
-    norm."""
-    return _backbone_train(params, tokens, cfg)[0]
+    """The train path's final hidden states (B, S, d) of a model without
+    a frontend, after the final norm."""
+    return _backbone_train(params, {"tokens": tokens}, cfg)[0]
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
     """Mean next-token cross entropy plus the MoE aux loss; batch =
-    {tokens, labels} (B, S).  Returns ``(loss + aux, {"xent": loss,
+    {tokens, labels} (B, S), and ``frames`` (B, enc_seq, d) for an
+    encoder-decoder or ``patches`` (B, n_patches, d) for a vision model,
+    whose prefix has no loss.  Returns ``(loss + aux, {"xent": loss,
     "aux": aux})`` as the reference does; a model without MoE has aux 0,
     and ``loss + 0`` is ``loss`` bit for bit."""
-    h, aux = _backbone_train(params, batch["tokens"], cfg)
-    loss = layers.xent_loss(_unembed_p(params), h, batch["labels"],
-                            cfg.loss_chunk)
+    h, aux = _backbone_train(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":             # no loss on the patch prefix
+        h = h[:, -labels.shape[1]:]
+    loss = layers.xent_loss(_unembed_p(params), h, labels, cfg.loss_chunk)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
@@ -271,7 +348,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     the unit a stack ``(n_units, members of the kind, ...)``:
     ``attn.{k, v, pos_arr}`` (in ``dtype``; a ring of the window's size if
     ``cfg.sliding_window`` is smaller), ``mamba.{conv, ssm}``,
-    ``mlstm.{C, n}`` and ``slstm.{h, c, n, m}`` (float32)."""
+    ``mlstm.{C, n}`` and ``slstm.{h, c, n, m}`` (float32); an
+    encoder-decoder's ``xattn.{k, v}`` ``(n_units, attention members, B,
+    enc_seq, KV, hd)`` in ``dtype``, the encoder's keys and values that
+    ``prefill`` fills.  A vision model's prompt holds its patch prefix
+    too: ``seq_len`` counts it."""
     _check_kinds(cfg)
     counts = _kind_counts(cfg)
     n = cfg.n_units
@@ -299,6 +380,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
             k: torch.full(shape, -1e9 if k == "m" else 0.0,
                           dtype=torch.float32, device=device)
             for k in ("h", "c", "n", "m")}
+    if cfg.is_encdec:
+        shape = (n, counts["attn"], batch, cfg.enc_seq, cfg.n_kv_heads,
+                 cfg.hd)
+        cache["xattn"] = {k: torch.zeros(shape, dtype=dtype, device=device)
+                          for k in ("k", "v")}
     return cache
 
 
@@ -343,8 +429,23 @@ def _serve_member(kind: str, p: dict, h: torch.Tensor, cfg: ArchConfig,
     return out
 
 
+def _serve_cross(p: dict, h: torch.Tensor, cfg: ArchConfig, st: dict,
+                 enc_out) -> torch.Tensor:
+    """Cross-attention on the serve path against ``st`` (this member's
+    ``xattn`` views): prefill computes the encoder's keys and values from
+    ``enc_out``, writes them into the cache and attends over the fresh
+    ones; decode (``enc_out`` None) attends over the cached ones."""
+    if enc_out is not None:
+        k, v = attention.cross_kv(p, enc_out)
+        st["k"].copy_(k)
+        st["v"].copy_(v)
+        return attention.cross_attend(p, h, k, v, cfg)
+    dt = torch.promote_types(h.dtype, p["wq"].dtype)
+    return attention.cross_attend(p, h, st["k"].to(dt), st["v"].to(dt), cfg)
+
+
 def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
-           pos) -> torch.Tensor:
+           pos, enc_out=None) -> torch.Tensor:
     """Every unit of the serve path: a prefill when ``pos`` is None, else
     one decode step at position ``pos``.  Returns the last position's
     logits (B, V)."""
@@ -355,6 +456,10 @@ def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
             h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
             st = {k: v[u, kmi[i]] for k, v in cache[spec.kind].items()}
             x = x + _serve_member(spec.kind, mp[spec.kind], h, cfg, st, pos)
+            if "xattn" in mp:
+                hx = layers.rmsnorm(mp["xnorm"], x, cfg.norm_eps)
+                st = {k: v[u, kmi[i]] for k, v in cache["xattn"].items()}
+                x = x + _serve_cross(mp["xattn"], hx, cfg, st, enc_out)
             x, _ = _ffn(mp, spec, x, cfg)
     h = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return layers.unembed(_unembed_p(params), h)[:, 0]
@@ -362,17 +467,19 @@ def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
             cache: dict) -> tuple[torch.Tensor, dict]:
-    """Forward over the prompt ``batch["tokens"]`` (B, S), filling every
-    member's cache.  Returns (last-position logits (B, V), cache).
+    """Forward over the prompt ``batch["tokens"]`` (B, S), and the
+    ``frames`` or ``patches`` of a model with a frontend, filling every
+    member's cache.  Returns (last-position logits (B, V), cache).  A
+    vision model's patch prefix takes the first ``n_patches`` positions,
+    so ``cache["pos"]`` is then ``n_patches + S``.
 
     The cache is updated in place (and returned): two runs that must not
     share state need caches of their own.
     """
-    tokens = batch["tokens"]
-    x = layers.embed(params["embed"], tokens)
-    logits = _serve(params, x, cfg, cache, None)
-    cache["pos"] = torch.full((), tokens.shape[1], dtype=torch.int32,
-                              device=tokens.device)
+    x, _, enc_out = _embed_inputs(params, batch, cfg)
+    logits = _serve(params, x, cfg, cache, None, enc_out)
+    cache["pos"] = torch.full((), x.shape[1], dtype=torch.int32,
+                              device=x.device)
     return logits, cache
 
 

@@ -614,3 +614,66 @@ def test_moe_and_recurrent_on_the_card_match_the_cpu(dev, arch):
                                        atol=1e-3 * float(want.abs().max()),
                                        msg=f"{kind}.{part}")
     assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == 20
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "pixtral-12b"])
+def test_encdec_and_frontends_on_the_card_match_the_cpu(dev, arch):
+    """whisper-small (frames into the encoder, cross-attention in every
+    decoder layer) and pixtral-12b (a patch prefix) at smoke size on the
+    card and on the CPU from the same weights and inputs, TF32 off: the
+    loss within rtol 1e-4 (a float32 last bit may flip a bfloat16
+    rounding of the residual stream); prefill logits within 1e-4 of the
+    largest; 12 teacher-forced decode steps within one bfloat16 step
+    (2**-8) of the largest logit, as in
+    ``test_serve_on_the_card_matches_the_cpu``; the cross-attention cache
+    within one bfloat16 step of each value plus 1e-5 of the largest."""
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as tt
+
+    cfg = configs.get_smoke(arch)
+    cpu = tt.init_params(cfg, seed=0)
+    card = L.tree_map(lambda x: x.to(dev), cpu)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+    labels = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+    extra = serve_lm.frontend_inputs(cfg, 2, gen)
+    prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def on(d, **kw):
+        return {k: v.to(d) for k, v in {**extra, **kw}.items()}
+
+    try:
+        with torch.no_grad():
+            losses = [tt.loss_fn(p, on(d, tokens=toks, labels=labels), cfg)[0]
+                      for p, d in ((cpu, "cpu"), (card, dev))]
+            np.testing.assert_allclose(float(losses[1]), float(losses[0]),
+                                       rtol=1e-4)
+            caches = [tt.init_cache(cfg, 2, prefix + 24, device=d)
+                      for d in ("cpu", dev)]
+            outs = [tt.prefill(p, on(d, tokens=toks[:, :8]), cfg, c)[0]
+                    for p, c, d in zip((cpu, card), caches, ("cpu", dev))]
+            scale = float(outs[0].abs().max())
+            torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=1e-4,
+                                       atol=1e-4 * scale)
+            for t in range(8, 20):
+                outs = [tt.decode_step(p, toks[:, t:t + 1].to(d), cfg, c)[0]
+                        for p, c, d in zip((cpu, card), caches,
+                                           ("cpu", dev))]
+                scale = float(outs[0].abs().max())
+                torch.testing.assert_close(outs[1].cpu(), outs[0], rtol=0,
+                                           atol=2 ** -8 * scale,
+                                           msg=f"pos {t}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for part, want in caches[0].get("xattn", {}).items():
+        want = want.float()
+        torch.testing.assert_close(caches[1]["xattn"][part].cpu().float(),
+                                   want, rtol=2 ** -7,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   msg=f"xattn.{part}")
+    assert torch.equal(caches[1]["attn"]["pos_arr"].cpu(),
+                       caches[0]["attn"]["pos_arr"])
+    assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == prefix + 20

@@ -360,19 +360,24 @@ def test_serve_continues_as_a_fresh_prefill_would():
     argmax equal (``chip_smoke.py`` holds the full-width runs so).  A MoE
     prefill drops tokens past an expert's capacity and a decode of two
     tokens never does, so the MoE archs run under no-drop capacity
-    (``moe.no_drop``); the recurrent archs' states are float32."""
+    (``moe.no_drop``); the recurrent archs' states are float32.
+    whisper-small's requests carry frames and pixtral-12b's patches, whose
+    prefix the cache holds too."""
     for arch in tconfigs.list_archs():
         cfg = tmoe.no_drop(tconfigs.get_smoke(arch))
         params = tt.init_params(cfg, seed=0)
-        prompts = torch.randint(0, cfg.vocab, (2, 16),
-                                generator=torch.Generator().manual_seed(1))
-        res = serve_lm.serve(cfg, params, prompts, 8, device="cpu")
+        gen = torch.Generator().manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+        extra = serve_lm.frontend_inputs(cfg, 2, gen)
+        prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+        res = serve_lm.serve(cfg, params, prompts, 8, device="cpu", **extra)
         assert res.tokens.shape == (2, 8)
-        assert int(res.cache["pos"]) == 16 + 7
+        assert int(res.cache["pos"]) == prefix + 16 + 7
         seq = torch.cat([prompts, res.tokens[:, :-1]], dim=1)
         with torch.no_grad():
-            fresh, _ = tt.prefill(params, {"tokens": seq}, cfg,
-                                  tt.init_cache(cfg, 2, seq.shape[1]))
+            fresh, _ = tt.prefill(params, {"tokens": seq, **extra}, cfg,
+                                  tt.init_cache(cfg, 2,
+                                                prefix + seq.shape[1]))
         torch.testing.assert_close(res.logits, fresh, rtol=0,
                                    atol=1e-2 * float(fresh.abs().max()))
         assert torch.equal(res.logits.argmax(-1), fresh.argmax(-1))

@@ -1,11 +1,12 @@
 """Port parity for the model zoo: configs, parameter trees, layouts and
-parameter counts of every ported arch (the dense zoo, gpt2s-federated,
-and the MoE and recurrent archs: qwen2-moe-a2.7b, llama4-maverick,
-xlstm-350m, jamba-v0.1-52b), and the train path (loss and gradients) of
-``repro_torch`` against ``repro`` for qwen3-0.6b, internlm2-1.8b,
-deepseek-7b and glm4-9b (the MoE and recurrent archs' train paths are in
-``test_torch_moe.py``, ``test_torch_recurrent.py`` and
-``test_torch_xlstm.py``).
+parameter counts of every arch (the dense zoo, gpt2s-federated, the MoE
+and recurrent archs: qwen2-moe-a2.7b, llama4-maverick, xlstm-350m,
+jamba-v0.1-52b, and the encoder-decoder and vision archs: whisper-small,
+pixtral-12b), and the train path (loss and gradients) of ``repro_torch``
+against ``repro`` for qwen3-0.6b, internlm2-1.8b, deepseek-7b and
+glm4-9b (the other archs' train paths are in ``test_torch_moe.py``,
+``test_torch_recurrent.py``, ``test_torch_xlstm.py``,
+``test_torch_encdec.py`` and ``test_torch_frontends.py``).
 
 Both packages start from identical weights (``params_from_numpy`` of the
 reference's init) on the smoke configs, plus one case whose ``head_dim``
@@ -45,7 +46,7 @@ from repro_torch.models import transformer as tt
 
 ARCHS = ("qwen3-0.6b", "internlm2-1.8b", "deepseek-7b", "glm4-9b",
          "gpt2s-federated", "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
-         "xlstm-350m", "jamba-v0.1-52b")
+         "xlstm-350m", "jamba-v0.1-52b", "whisper-small", "pixtral-12b")
 DENSE = ARCHS[:4]
 LOSS_RTOL = 5e-5
 
@@ -92,6 +93,7 @@ def port_fields(cfg) -> dict:
            for f in dataclasses.fields(tmc.ArchConfig)}
     out["unit_pattern"] = [(s.kind, s.moe, s.ffn) for s in cfg.unit_pattern]
     out["hd"], out["n_units"] = cfg.hd, cfg.n_units
+    out["is_encdec"] = cfg.is_encdec
     return out
 
 
@@ -159,10 +161,15 @@ def test_full_configs_match_reference_counts_and_layouts(arch):
 FULL_COUNTS = {"qwen2-moe-a2.7b": 14_315_587_584,
                "llama4-maverick-400b-a17b": 394_672_051_200,
                "xlstm-350m": 518_640_808,
-               "jamba-v0.1-52b": 51_570_315_264}
-# (d, chunks, groups) of the models the chip runs FetchSGD on
+               "jamba-v0.1-52b": 51_570_315_264,
+               "whisper-small": 278_482_944,
+               "pixtral-12b": 12_273_996_800}
+# (d, chunks, groups) of the models the chip runs FetchSGD on, and of
+# full pixtral-12b (the chip trains 8 of its 40 layers)
 CHIP_RUNS = {"qwen3-0.6b": (751_632_384, 55, 23),
-             "xlstm-350m": (518_640_808, 70, 66)}
+             "xlstm-350m": (518_640_808, 70, 66),
+             "whisper-small": (278_482_944, 34, 32),
+             "pixtral-12b": (12_273_996_800, 741, 21)}
 
 
 def test_qwen2_moe_cut_for_the_chip_matches_reference():
@@ -178,6 +185,23 @@ def test_qwen2_moe_cut_for_the_chip_matches_reference():
     assert (tl.total, tl.num_chunks, len(tl.groups)) == \
         (jl.total, jl.num_chunks, len(jl.groups)) == \
         (5_186_750_464, 317, 24)
+    assert [(c.path, c.row_start, c.n_rows, c.offset) for c in tl.chunks] \
+        == [(c.path, c.row_start, c.n_rows, c.offset) for c in jl.chunks]
+
+
+def test_pixtral_cut_for_the_chip_matches_reference():
+    """pixtral-12b at 8 of its 40 layers, as the chip trains it with
+    FetchSGD (weights and gradients of 40 layers take 91 GiB): the count,
+    chunks and groups equal the reference's."""
+    jcfg, tcfg = (dataclasses.replace(get("pixtral-12b"), n_layers=8)
+                  for get in (jconfigs.get_config, tconfigs.get_config))
+    jshapes = jax.eval_shape(lambda: jt.init_params(jcfg,
+                                                    jax.random.PRNGKey(0)))
+    jl = JL.build_layout(jshapes)
+    tl = TL.build_layout(tt.init_params(tcfg, device="meta"))
+    assert (tl.total, tl.num_chunks, len(tl.groups)) == \
+        (jl.total, jl.num_chunks, len(jl.groups)) == \
+        (3_549_516_800, 221, 21)
     assert [(c.path, c.row_start, c.n_rows, c.offset) for c in tl.chunks] \
         == [(c.path, c.row_start, c.n_rows, c.offset) for c in jl.chunks]
 
@@ -205,16 +229,18 @@ def batch(vocab: int, seed: int = 0, B: int = 2, S: int = 24) -> dict:
 
 def assert_loss_and_grads_match(jcfg, tcfg, seed: int = 0,
                                 loss_rtol: float = LOSS_RTOL,
-                                grad_tol: float = 1e-2):
+                                grad_tol: float = 1e-2, extra=None):
+    """``extra``: more of the batch (numpy ``frames`` or ``patches``)."""
     jp = reference_params(jcfg)
-    b = batch(jcfg.vocab, seed)
+    b = {**batch(jcfg.vocab, seed), **(extra or {})}
     (jloss, _), jg = jax.value_and_grad(
         lambda p: jt.loss_fn(p, {k: jnp.asarray(v) for k, v in b.items()},
                              jcfg, remat=False), has_aux=True)(
         jax.tree_util.tree_map(jnp.asarray, jp))
     tloss, tg = tt.value_and_grad(
         params_from_numpy(jp),
-        {k: torch.from_numpy(v).long() for k, v in b.items()}, tcfg)
+        {k: torch.from_numpy(v).long() if v.dtype.kind == "i"
+         else torch.from_numpy(v) for k, v in b.items()}, tcfg)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=loss_rtol)
     want = dict(TL.flatten(jax.tree_util.tree_map(
         lambda g: np.asarray(g, np.float32), jg)))
