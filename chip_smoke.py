@@ -11,7 +11,11 @@ In order, it
    encode on both of its paths (binned at 2**24, one-pass at 2**19 and at
    the main path's largest one-pass chunk, which is timed apart), with a
    chunk of 90% zeros, with overflowing bins, and with a table of
-   1,000,003 columns, which the estimate reads too;
+   1,000,003 columns, which the estimate reads too; the estimate alone and
+   fused with the selection of a chunk's 25,000 candidates, which the main
+   path runs (its rule and its twin, an all-zero table, a second call that
+   gives the same arrays), timed beside ``torch.topk`` of the estimates and
+   the unfused estimate + ``torch.topk``;
 3. runs 2 rounds of the reduced model on the card and on the CPU from the
    same weights, and compares them (the port's own reference on a small
    input);
@@ -235,20 +239,60 @@ def card_checks(torch, dev):
     want = ref.sketch_estimate(table, OFFSET, CHUNK)
     check(torch.equal(got, want), "estimate exact")
     err = max_abs_err(torch, got, want)
+    est = got
     got = cuda_cs.sketch_estimate(odd, OFFSET + 3, CHUNK - 3)
     want = ref.sketch_estimate(odd, OFFSET + 3, CHUNK - 3)
     check(torch.equal(got, want),
           f"estimate exact from 5 x {ODD_COLS:,}, 2**24 - 3 ids")
+    err = max(err, max_abs_err(torch, got, want))
     ms = time_ms(torch, lambda: cuda_cs.sketch_estimate(table, OFFSET, CHUNK),
                  10)
     plain = time_ms(torch, lambda: ref.sketch_estimate(table, OFFSET, CHUNK),
                     3)
     comparators = sum(len(range(p & 1, ROWS - 1, 2)) for p in range(ROWS))
-    b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4,
-                     CHUNK * (ROWS + 2 + 2 * comparators))
-    rows["estimate"] = dict(max_abs_err=max(err, max_abs_err(torch, got,
-                                                             want)),
-                            ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    ops_per_id = ROWS + 2 + 2 * comparators
+    b, by = bound_ms(CHUNK * 4 + ROWS * COLS * 4, CHUNK * ops_per_id)
+    estimate_only = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                         bound_by=by)
+
+    # the fused estimate + selection that topk_from_sketch runs a chunk
+    print(f"estimate + selection: the {K:,} largest of 2**24 estimates")
+    vals, idx = cuda_cs.sketch_estimate_topk(table, OFFSET, CHUNK, K)
+    err = select_checks(torch, cuda_cs, ref, table, OFFSET, CHUNK, vals, idx,
+                        est, "of the encoded reals")
+    again = cuda_cs.sketch_estimate_topk(table, OFFSET, CHUNK, K)
+    check(torch.equal(again[1], idx)
+          and torch.equal(again[0].view(torch.int32), vals.view(torch.int32)),
+          "a second call gives identical arrays")
+    vals, idx = cuda_cs.sketch_estimate_topk(odd, OFFSET + 3, CHUNK - 3, K)
+    err = max(err, select_checks(
+        torch, cuda_cs, ref, odd, OFFSET + 3, CHUNK - 3, vals, idx,
+        cuda_cs.sketch_estimate(odd, OFFSET + 3, CHUNK - 3),
+        f"from 5 x {ODD_COLS:,}, 2**24 - 3 ids"))
+    vals, idx = cuda_cs.sketch_estimate_topk(torch.zeros_like(table), OFFSET,
+                                             CHUNK, K)
+    check(torch.equal(idx, torch.arange(K, device=dev))
+          and int(torch.count_nonzero(vals)) == 0,
+          f"an all-zero table: every estimate ties at 0, the {K:,} lowest "
+          f"ids come out, with 0")
+    ms = time_ms(torch, lambda: cuda_cs.sketch_estimate_topk(
+        table, OFFSET, CHUNK, K), 10)
+    plain = time_ms(torch, lambda: ref.sketch_estimate_topk(
+        table, OFFSET, CHUNK, K), 3)
+    library = time_ms(torch, lambda: torch.topk(est.abs(), K), 10)
+
+    def unfused():
+        e = cuda_cs.sketch_estimate(table, OFFSET, CHUNK)
+        i = torch.topk(e.abs(), K).indices
+        return e[i], i
+
+    estimate_only["unfused_ms"] = time_ms(torch, unfused, 10)
+    # the table read once and the candidates (4 + 8 bytes) written once,
+    # against the estimate's operations
+    b, by = bound_ms(ROWS * COLS * 4 + K * 12, CHUNK * ops_per_id)
+    rows["estimate"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                            bound_ms=b, bound_by=by, library_ms=library,
+                            estimate_only=estimate_only)
 
     # -- momentum_error ------------------------------------------------------
     print("momentum_error: three 5 x 2**20 tables")
@@ -310,6 +354,35 @@ def card_checks(torch, dev):
     rows["topk_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                              bound_ms=b, bound_by=by)
     return rows
+
+
+def select_checks(torch, cuda_cs, ref, table, offset, n, vals, idx, est,
+                  what: str) -> float:
+    """The fused selection (``vals``, ``idx``) of ``n`` ids against its rule
+    and its plain twin on the same table: the estimate kernel's ``est``
+    gives the keys (|est| with NaN above +inf); the ids above the K-th
+    largest key equal the twin's as a set, as many sit at it as in the
+    twin's, and the tied ones are the lowest; ``idx`` ascends and ``vals``
+    is ``est[idx]`` bit for bit.  Returns the values' largest error."""
+    k = vals.numel()
+    keys = est.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    keys = torch.where(keys > 0x7F800000, 0x7FC00000, keys)
+    t = torch.topk(keys, k).values[-1]
+    above = torch.nonzero(keys > t).flatten()
+    tied = torch.nonzero(keys == t).flatten()[:k - above.numel()]
+    check(torch.equal(idx, torch.sort(torch.cat([above, tied])).values),
+          f"selection {what}: {above.numel():,} ids above the {k:,}-th "
+          f"|estimate|, then the {tied.numel():,} lowest ids tied at it, "
+          f"ascending")
+    check(torch.equal(vals.view(torch.int32), est[idx].view(torch.int32)),
+          f"selection {what}: values are the estimates, bit for bit")
+    pv, pi = ref.sketch_estimate_topk(table, offset, n, k)
+    pk = keys[pi]
+    check(torch.equal(torch.sort(pi[pk > t]).values, above)
+          and int((pk == t).sum()) == tied.numel(),
+          f"selection {what}: the plain twin's ids above the threshold are "
+          f"the same, and as many tie at it")
+    return max_abs_err(torch, vals, ref.sketch_estimate(table, offset, n)[idx])
 
 
 def small_reference_run(torch, dev):
@@ -1543,7 +1616,7 @@ def main() -> int:
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",
                    "src/repro/kernels/count_sketch.py:59"),
-        "estimate": ("src/repro_torch/kernels/csrc/estimate.cu",
+        "estimate": ("src/repro_torch/kernels/csrc/estimate_select.cu",
                      "src/repro/kernels/count_sketch.py:134"),
         "momentum_error": ("src/repro_torch/kernels/csrc/momentum_error.cu",
                            "src/repro/kernels/server_step.py:73"),
@@ -1556,8 +1629,10 @@ def main() -> int:
          "ms": kernels[k]["ms"], "kernel_ms": kernels[k]["ms"],
          "plain_ms": kernels[k]["plain_ms"],
          "bound_ms": kernels[k]["bound_ms"],
-         "bound_by": kernels[k]["bound_by"], "library_ms": None,
-         **({"one_pass": kernels[k]["one_pass"]} if k == "encode" else {})}
+         "bound_by": kernels[k]["bound_by"],
+         "library_ms": kernels[k].get("library_ms"),
+         **{sub: kernels[k][sub] for sub in ("one_pass", "estimate_only")
+            if sub in kernels[k]}}
         for k, (src, rep) in meta.items()]}
     print(json.dumps(line))
     print(smi)

@@ -2,13 +2,17 @@
 
 Port of ``repro.core.topk``.  ``Delta = Top-k(U(S_e))`` — the k largest
 |estimate| coordinates of the error sketch over all d global ids — is
-found chunk by chunk: each chunk's estimates (the estimate kernel) give
-per-chunk candidates, and one top-k over the pool picks the winners.
+found chunk by chunk: each chunk gives its candidates, and one top-k over
+the pool picks the winners.  A chunk's candidates come from one fused op
+(``kernels.ops.sketch_estimate_topk``): on the card the estimate kernel
+with the selection fused into it, which keeps the lowest local indices
+among ties at the per-chunk k-th magnitude; on the CPU the estimates and
+``torch.topk``, as the reference takes ``lax.top_k`` of them.
 ``topk_dense`` makes the same selection over a dense accumulator, for the
-baselines that keep one (local and true top-k).  Both top-k steps stay
-library calls (``torch.topk``), as ``lax.top_k`` stayed XLA in the
-reference.  ``torch.topk`` does not promise ``lax.top_k``'s order among
-equal magnitudes.
+baselines that keep one (local and true top-k).  The final top-k over the
+pool, and ``topk_dense``'s, stay library calls (``torch.topk``), as
+``lax.top_k`` stayed XLA in the reference.  ``torch.topk`` does not
+promise ``lax.top_k``'s order among equal magnitudes.
 
 Exactness: with at most ``EXACT_CHUNK_LIMIT`` chunks every chunk gives k
 candidates, so the result is exactly Top-k(U(S_e)); larger layouts cap
@@ -53,10 +57,9 @@ def topk_from_sketch(table: torch.Tensor, layout: layout_lib.ParamLayout,
         size = g.n_rows * g.row_len
         kk = _chunk_k(k, size, nall)
         for ci in g.chunk_ids:
-            est = kernel_ops.sketch_estimate(table, layout.chunks[ci].offset,
-                                             size, key)
-            idx = torch.topk(est.abs(), kk).indices
-            cand_vals.append(est[idx])
+            vals, idx = kernel_ops.sketch_estimate_topk(
+                table, layout.chunks[ci].offset, size, kk, key)
+            cand_vals.append(vals)
             cand_local.append(idx)
             cand_chunk.append(torch.full((kk,), ci, dtype=torch.int64,
                                          device=table.device))

@@ -35,11 +35,16 @@ _SIGNATURES = {
     "fs_encode": [_P, _I, _LL, _ULL, _P, _I, _I, _SEEDS, _SEEDS, _ULL, _P,
                   _P, _P, _LL, _P],
     "fs_estimate": [_P, _I, _I, _ULL, _LL, _P, _SEEDS, _SEEDS, _ULL, _P],
+    "fs_estimate_select": [_P, _I, _I, _ULL, _LL, _LL, _P, _P, _P, _P, _P,
+                           ctypes.c_uint, _P, _P, _SEEDS, _SEEDS, _ULL, _P],
     "fs_momentum_error": [_P, _P, _P, _P, ctypes.c_float, _P, _P, _LL, _P],
     "fs_topk_mask": [_P, _P, _LL, _P, _P, _I, _I, _SEEDS, _SEEDS, _ULL, _I,
                      _I, _P],
     "fs_encode_bin_cols": [],
     "fs_encode_max_bins": [],
+    "fs_select_tile": [],
+    "fs_select_group_tiles": [],
+    "fs_select_state_words": [],
 }
 
 

@@ -1,12 +1,16 @@
 """CUDA wrappers of the Count Sketch encode and estimate kernels.
 
 ``csrc/encode.cu`` replaces ``repro/kernels/count_sketch.py::_encode_kernel``
-and ``csrc/estimate.cu`` replaces ``::_estimate_kernel``.  The wrappers take
-CUDA tensors only: they check device, dtype, shape and contiguity, allocate
-what the kernel writes (and the encode's scratch), launch on PyTorch's
-current stream and raise if the launch failed.  ``LAUNCHES`` counts the
-calls that launched each kernel: one an encode call, whether it took the
-one-pass kernel or the binned pair (``PATHS`` splits them).
+and ``csrc/estimate.cu`` replaces ``::_estimate_kernel``;
+``csrc/estimate_select.cu`` fuses that estimate with the per-chunk top-k of
+``repro/core/topk.py::topk_from_sketch`` (``sketch_estimate_topk``).  The
+wrappers take CUDA tensors only: they check device, dtype, shape and
+contiguity, allocate what the kernels write (and their scratch), launch on
+PyTorch's current stream and raise if the launch failed.  ``LAUNCHES``
+counts the calls that launched each kernel: one an encode call, whether it
+took the one-pass kernel or the binned pair (``PATHS`` splits them), and one
+an estimate call, of the plain estimate or of the fused one, whose
+selection runs four more kernels after it.
 """
 
 from __future__ import annotations
@@ -176,3 +180,84 @@ def sketch_estimate(table: torch.Tensor, offset: int, n: int,
     build.check(rc, "estimate")
     LAUNCHES["estimate"] += 1
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Select:
+    """The fused selection's geometry, as ``csrc/estimate_select.cu``
+    compiles it: ``tile`` ids a block of its count and write passes,
+    ``group_tiles`` tiles a group whose counts are summed by atomics, and
+    ``state_words`` 32-bit words of histograms and state."""
+
+    tile: int
+    group_tiles: int
+    state_words: int
+
+    def tiles(self, n: int) -> int:
+        return -(-n // self.tile)
+
+    def work_words(self, n: int) -> int:
+        """The zeroed words a call of n ids needs: the state, then one
+        64-bit count a group."""
+        return self.state_words + 2 * -(-self.tiles(n) // self.group_tiles)
+
+    @staticmethod
+    def capacity(n: int, kk: int) -> int:
+        """Entries of the compact candidate list: room for 4 kk (the kk
+        winners and the ties beside them), at least 2**16, at most n.  A
+        tile that finds the list full is written from the scratch."""
+        return min(n, max(4 * kk, 1 << 16))
+
+
+@functools.cache
+def select_geometry() -> Select:
+    lib = build.library()
+    return Select(lib.fs_select_tile(), lib.fs_select_group_tiles(),
+                  lib.fs_select_state_words())
+
+
+def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
+                         key: int = 0, *, _capacity: int | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kk ids of offset..offset+n-1 with the largest |estimate|:
+    ``(values (kk,) float32, local_idx (kk,) int64)``, the signed
+    estimates and the ids less ``offset``.
+
+    The ids are those ``torch.topk(|estimate|, kk)`` picks, with ties at
+    the kk-th magnitude going to the lowest local indices, in ascending
+    local index; NaN counts as the largest magnitude.  The estimates are
+    ``sketch_estimate``'s, bit for bit.  No host sync: the chunk's n
+    estimates live in a scratch of n floats on the card.
+
+    ``_capacity`` is for the card tests only: the compact candidate list's
+    entries (0 writes every tile from the scratch); None lets
+    ``Select.capacity`` size it."""
+    dev = check_cuda(table)
+    rows, cols = table.shape
+    check_table(table, rows, cols)
+    _check_ids(offset, n)
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"the fused selection takes 1..2**31-1 ids, got {n}")
+    if not 1 <= kk <= n:
+        raise ValueError(f"kk must be in 1..n = {n}, got {kk}")
+    geo = select_geometry()
+    est = torch.empty(n, dtype=torch.float32, device=dev)
+    work = torch.zeros(geo.work_words(n), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty(geo.tiles(n), dtype=torch.int64, device=dev)
+    tile_start = torch.empty(geo.tiles(n), dtype=torch.int32, device=dev)
+    capacity = geo.capacity(n, kk) if _capacity is None else _capacity
+    cand = torch.empty(capacity, dtype=torch.int64, device=dev)
+    values = torch.empty(kk, dtype=torch.float32, device=dev)
+    idx = torch.empty(kk, dtype=torch.int64, device=dev)
+    bseeds, sseeds = row_seeds(rows, key)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        rc = lib.fs_estimate_select(
+            table.data_ptr(), rows, cols, offset, n, kk, est.data_ptr(),
+            work.data_ptr(), tile_counts.data_ptr(), tile_start.data_ptr(),
+            cand.data_ptr(), capacity, values.data_ptr(), idx.data_ptr(),
+            bseeds, sseeds,
+            fastmod_multiplier(cols), torch.cuda.current_stream().cuda_stream)
+    build.check(rc, "estimate")
+    LAUNCHES["estimate"] += 1
+    return values, idx

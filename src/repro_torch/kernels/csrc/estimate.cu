@@ -11,9 +11,9 @@
 // The TPU kernel gathered through a one-hot MXU contraction.  Here each
 // thread hashes its id, gathers one cell per row from the table (21 MB on
 // the main path, resident in the 50 MB L2) and sorts the <= 10 values in
-// registers with an odd-even transposition network unrolled on the row
-// count; jnp.median's midpoint and NaN rules make it equal its plain twin
-// bit for bit.
+// registers (estimate.cuh, shared with the fused estimate + selection of
+// estimate_select.cu); jnp.median's midpoint and NaN rules make it equal
+// its plain twin bit for bit.
 //
 // What bounds it on the H100: the random 4-byte reads, rows per id.  The
 // byte bound (the estimates written once plus the table read once) is out
@@ -25,7 +25,7 @@
 // (the same probe), and several ids a thread with all their gathers in
 // flight gained no more than the spread between runs, so the kernel stays
 // one id a thread.
-#include "hash.cuh"
+#include "estimate.cuh"
 
 namespace {
 
@@ -38,30 +38,9 @@ __global__ void estimate_kernel(const float* __restrict__ table, uint32_t cols,
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        i < n; i += stride) {
-    const unsigned long long id = base + static_cast<unsigned long long>(i);
-    const uint32_t lo = static_cast<uint32_t>(id);
-    const uint32_t hi = static_cast<uint32_t>(id >> 32);
-    float v[R];
-    bool any_nan = false;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const uint32_t b = fs::bucket(lo, hi, seeds.bucket[j], cols, m);
-      v[j] = fs::sign(lo, hi, seeds.sign[j]) *
-             __ldcg(table + static_cast<size_t>(j) * cols + b);
-      any_nan |= (v[j] != v[j]);
-    }
-#pragma unroll
-    for (int pass = 0; pass < R; ++pass) {
-#pragma unroll
-      for (int a = pass & 1; a + 1 < R; a += 2) {
-        const float x = v[a];
-        const float y = v[a + 1];
-        v[a] = fminf(x, y);
-        v[a + 1] = fmaxf(x, y);
-      }
-    }
-    const float mid = __fmul_rn(__fadd_rn(v[(R - 1) / 2], v[R / 2]), 0.5f);
-    out[i] = any_nan ? __int_as_float(0x7fc00000) : mid;
+    out[i] = fs::estimate_id<R>(table, cols, m,
+                                base + static_cast<unsigned long long>(i),
+                                seeds);
   }
 }
 

@@ -1,4 +1,4 @@
-"""Dispatch of the four sketch kernels by the device their tensors lie on.
+"""Dispatch of the sketch kernels by the device their tensors lie on.
 
 A CUDA tensor launches the hand-written kernel (``count_sketch`` /
 ``server_step``), which raises if it cannot build or launch; a CPU tensor
@@ -8,11 +8,12 @@ and no fallback from the card to the plain version.  (The reference's
 
 Telemetry: ``set_telemetry(tele)`` arms wall-clock spans around each
 dispatch when ``tele`` traces: ``kernel.<name>[cuda:<path>]`` on the card
-(the encode's path is ``binned`` or ``one_pass``, the others'
-``sm_90a``) and ``kernel.<name>[torch:eager]`` on the CPU.  On the card
-each span starts on an idle device and waits for its output
-(``Span.sync``), so it times the kernel and its launch; with tracing off
-the dispatch adds nothing, no device sync included.
+(the encode's path is ``binned`` or ``one_pass``, the fused estimate and
+selection's ``select``, the others' ``sm_90a``) and
+``kernel.<name>[torch:eager]`` on the CPU.  On the card each span starts
+on an idle device and waits for its output (``Span.sync``), so it times
+the kernel and its launch; with tracing off the dispatch adds nothing, no
+device sync included.
 """
 
 from __future__ import annotations
@@ -74,6 +75,15 @@ def sketch_estimate(table: torch.Tensor, offset: int, n: int,
     fn = cuda_cs.sketch_estimate if on_cuda else ref.sketch_estimate
     with _span("estimate", table) as sp:
         return sp.sync(fn(table, offset, n, key))
+
+
+def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
+                         key: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, local_idx) of the chunk's kk largest |estimate| ids."""
+    on_cuda = _on_cuda(table)
+    fn = cuda_cs.sketch_estimate_topk if on_cuda else ref.sketch_estimate_topk
+    with _span("estimate", table, "select") as sp:
+        return sp.sync(fn(table, offset, n, kk, key))
 
 
 def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Plain PyTorch twins of the four CUDA kernels, with their signatures.
+"""Plain PyTorch twins of the CUDA kernels, with their signatures.
 
 They are the CPU path (``repro_torch.kernels.ops`` sends every CPU tensor
 here) and the reference each kernel is held against on the card.  They
@@ -29,6 +29,16 @@ def sketch_estimate(table: torch.Tensor, offset: int, n: int,
                     key: int = 0) -> torch.Tensor:
     """Median-of-rows estimates for global ids offset..offset+n-1."""
     return cs.estimate_chunk(table, offset, n, key)
+
+
+def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
+                         key: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kk largest |estimate| ids of the chunk: ``(est[idx], idx)``
+    with ``idx`` from ``torch.topk(|est|, kk)``, in its order (ties as it
+    breaks them, where the kernel keeps the lowest ids)."""
+    est = sketch_estimate(table, offset, n, key)
+    idx = torch.topk(est.abs(), kk).indices
+    return est[idx], idx
 
 
 def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,

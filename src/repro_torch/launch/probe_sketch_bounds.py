@@ -34,7 +34,11 @@ Then it times the kernels in ``kernels/csrc`` through their wrappers: the
 encode's one-pass and binned paths (forced with ``_bin_capacity``) for
 chunks of 2**12..2**24 elements into the 5 x 2**20 table, dense and 90%
 zeros; the binned path's two kernels at 2**24 apart (``torch.profiler``);
-and the estimate at 2**24 ids.
+the estimate at 2**24 ids; and the fused estimate + selection of 25,000
+candidates from 2**24 ids of the table of the 2**24 dense chunk, whole and
+by kernel (``torch.profiler``: pass 1, the two refine passes, the tile
+count and write, and the zeroing of its histograms), beside the estimate
+alone on that table.
 
 Prints one line per variant (mean ms over 20 launches, CUDA events behind
 a queued device sleep), the card's name and power limit, and the results
@@ -224,6 +228,7 @@ extern "C" int probe_estimate(int mode, const float* t, int cols,
 """
 
 ROWS, COLS, CHUNK, OFFSET = 5, 1 << 20, 1 << 24, (1 << 32) + 12_345
+K = 25_000             # the main path's k: a 2**24 chunk's candidates
 # name -> MODE of the probe source
 ENCODE = {"as_is": 0, "fastmod": 1, "hash_only": 2, "hash_only_fastmod": 7,
           "atomic_rand": 3, "atomic_seq": 4, "atomic_rand_cs": 5,
@@ -338,6 +343,25 @@ def probe_paths(torch, dev, gen, results):
                        e.self_device_time_total / e.count / 1e3)
     record(results, "estimate/new/2^24", time_ms_cuda(
         lambda: cs.sketch_estimate(table, OFFSET, CHUNK)))
+    # the fused estimate + selection on the sketch of that chunk
+    table = cs.sketch_encode(dense, OFFSET, ROWS, COLS)
+    record(results, "estimate/new/2^24/reals", time_ms_cuda(
+        lambda: cs.sketch_estimate(table, OFFSET, CHUNK)))
+    record(results, "estimate_select/2^24", time_ms_cuda(
+        lambda: cs.sketch_estimate_topk(table, OFFSET, CHUNK, K)))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            cs.sketch_estimate_topk(table, OFFSET, CHUNK, K)
+        torch.cuda.synchronize()
+    parts = {"estimate_hist": "pass1", "refine_kernel<11": "refine2",
+             "refine_kernel<8": "refine3", "tile_count": "tile_count",
+             "tile_write": "tile_write", "FillFunctor": "zero"}
+    for e in prof.key_averages():
+        for key, part in parts.items():
+            if key in e.key and e.count:
+                record(results, f"estimate_select/{part}/2^24",
+                       e.self_device_time_total / e.count / 1e3)
 
 
 def record(results, name, ms):

@@ -12,10 +12,12 @@ wall time in which the device ran a kernel or a copy.  The profiler's full
 table goes to ``--out``.
 
 It also splits the server's top-k (``core/topk.topk_from_sketch``) on the
-final error sketch with CUDA events: the per-chunk estimate kernels, the
-per-chunk ``torch.topk`` calls (with the ``abs`` they take) and the final
-top-k over the candidate pool, each group timed on its own behind a queued
-device sleep, the median of 5 repetitions.
+final error sketch with CUDA events: the per-chunk fused estimate and
+selection that ``topk_from_sketch`` runs (``estimate_select``), the final
+top-k over the candidate pool, and, as the yardstick of the fusion, the
+unfused per-chunk estimate kernels and the per-chunk ``torch.topk`` calls
+(with the ``abs`` they take) that it replaced; each group timed on its own
+behind a queued device sleep, the median of 5 repetitions.
 """
 
 from __future__ import annotations
@@ -87,9 +89,10 @@ def device_ms(fn, reps: int = 5) -> float:
 
 
 def time_topk(table, lay, k: int, key: int = 0) -> dict[str, float]:
-    """Device ms of the three parts of ``topk_from_sketch`` on ``table``:
-    the estimates, the per-chunk top-k and the final top-k over the pool
-    (the same calls, in the same order, as ``core/topk.py``)."""
+    """Device ms of the parts of ``topk_from_sketch`` on ``table``: the
+    per-chunk fused estimate and selection and the final top-k over the
+    pool (the same calls, in the same order, as ``core/topk.py``), and the
+    unfused estimates and per-chunk top-k that the fusion replaced."""
     nall = lay.num_chunks
     work = []                            # (offset, size, per-chunk k)
     for g in lay.groups:
@@ -102,6 +105,9 @@ def time_topk(table, lay, k: int, key: int = 0) -> dict[str, float]:
             in zip(ests, work)]
     pool = torch.cat([e[i] for e, i in zip(ests, idxs)])
     return {
+        "estimate_select": device_ms(lambda: [
+            kernel_ops.sketch_estimate_topk(table, off, size, kk, key)
+            for off, size, kk in work]),
         "estimate": device_ms(lambda: [
             kernel_ops.sketch_estimate(table, off, size, key)
             for off, size, _ in work]),
@@ -146,7 +152,7 @@ def main(argv=None):
     parts = time_topk(state.error_sketch, lay, fs_cfg.k, fs_cfg.hash_key)
     print(f"server top-k on the error sketch, device ms ({parts['chunks']} "
           f"chunks, median of 5):")
-    for name in ("estimate", "chunk_topk", "final_topk"):
+    for name in ("estimate_select", "estimate", "chunk_topk", "final_topk"):
         print(f"  {name:12s} {parts[name]:.6f}")
 
     activities = [torch.profiler.ProfilerActivity.CPU,

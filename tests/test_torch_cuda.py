@@ -14,6 +14,13 @@ another order, use rtol=1e-5, atol=1e-4.
 The encode has two paths (one-pass atomics, and the binned partition +
 accumulate pair); ``_bin_capacity`` forces either, and a small capacity
 forces the binned path's overflow into the table.
+
+The fused estimate + selection (``sketch_estimate_topk``) is held exactly
+to its rule, computed from the estimate kernel's output (which is held to
+its twin bit for bit above): the ids above the kk-th largest |estimate|,
+then the lowest-index ids at it, in ascending order, with their estimates
+bit for bit.  Its plain twin, ``torch.topk``, breaks ties its own way, so
+it is held to the same ids above the kk-th magnitude and as many at it.
 """
 
 import numpy as np
@@ -168,6 +175,147 @@ def test_estimate_matches_plain(dev, rows, cols, offset):
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+SELECT_COLS = [7, 130, 1_000_003]
+SELECT_LENGTHS = [1, 3, 777, 2**20 + 5]
+SELECT_KINDS = ["normal", "integer", "zero", "nan", "negzero"]
+
+
+def select_table(kind, rows, cols, gen, dev):
+    """normal; integer-valued in -3..3 (heavy ties); all zero; 3% NaN
+    cells; half the cells -0.0 and the rest normal."""
+    if kind == "zero":
+        return torch.zeros(rows, cols, device=dev)
+    if kind == "integer":
+        return ints(gen, (rows, cols), dev, 3)
+    t = torch.randn(rows, cols, generator=gen)
+    if kind == "nan":
+        t[torch.rand(rows, cols, generator=gen) < 0.03] = float("nan")
+        t[0, :3] = float("nan")
+    elif kind == "negzero":
+        t[torch.rand(rows, cols, generator=gen) < 0.5] = -0.0
+    return t.to(dev)
+
+
+def magnitude_keys(est):
+    """|est| as the fused kernel orders it: the float's bits without the
+    sign (+0 = -0 < floats < +inf), every NaN one key above +inf."""
+    k = est.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    return torch.where(k > 0x7F800000, 0x7FC00000, k)
+
+
+def assert_selects(table, offset, n, kk, key):
+    """The fused op against its rule and against its twin (module doc):
+    with the compact candidate list as sized, with none (every tile from
+    the scratch) and with one of 37 entries (both kinds of tile)."""
+    est = cuda_cs.sketch_estimate(table, offset, n, key)
+    keys = magnitude_keys(est)
+    t = torch.topk(keys, kk).values[-1]
+    above = torch.nonzero(keys > t).flatten()
+    tied = torch.nonzero(keys == t).flatten()[:kk - above.numel()]
+    want = torch.sort(torch.cat([above, tied])).values
+    for capacity in (None, 0, 37):
+        vals, idx = cuda_cs.sketch_estimate_topk(table, offset, n, kk, key,
+                                                 _capacity=capacity)
+        torch.testing.assert_close(idx, want, rtol=0, atol=0)
+        assert torch.equal(vals.view(torch.int32),
+                           est[idx].view(torch.int32))
+    pv, pi = ref.sketch_estimate_topk(table, offset, n, kk, key)
+    torch.testing.assert_close(pv, est[pi], rtol=0, atol=0, equal_nan=True)
+    pk = keys[pi]
+    torch.testing.assert_close(torch.sort(pi[pk > t]).values, above,
+                               rtol=0, atol=0)
+    assert int((pk == t).sum()) == tied.numel() and bool((pk >= t).all())
+
+
+@pytest.mark.parametrize("rows", range(1, 11))
+@pytest.mark.parametrize("cols", SELECT_COLS)
+@pytest.mark.parametrize("n", SELECT_LENGTHS)
+def test_estimate_topk_selects_by_its_rule(dev, rows, cols, n):
+    gen = torch.Generator().manual_seed(rows * 1000 + cols + n)
+    for kind in SELECT_KINDS:
+        table = select_table(kind, rows, cols, gen, dev)
+        for kk in sorted({min(kk, n) for kk in (1, 512, 25_000, n)}):
+            assert_selects(table, 2**32 + 7, n, kk, 3)
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_estimate_topk_at_the_main_path_chunk(dev, kind):
+    """2**24 ids of the 5 x 2**20 table at an offset above 2**32; a second
+    call gives the same arrays."""
+    gen = torch.Generator().manual_seed(24)
+    table = select_table(kind, 5, 1 << 20, gen, dev)
+    offset, n = 2**32 + 12_345, 1 << 24
+    for kk in (1, 512, 25_000, n):
+        assert_selects(table, offset, n, kk, 0)
+    a = cuda_cs.sketch_estimate_topk(table, offset, n, 25_000)
+    b = cuda_cs.sketch_estimate_topk(table, offset, n, 25_000)
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1], b[1])
+
+
+def test_estimate_topk_makes_no_host_sync(dev):
+    """Under sync debug mode "error" PyTorch raises at any sync it makes;
+    and the call returns while the card still sleeps through what was
+    queued before it, so the C side waits for nothing either."""
+    table = torch.randn(5, 1 << 20, device=dev)
+    args = (table, 2**32 + 12_345, 1 << 24, 25_000)
+    cuda_cs.sketch_estimate_topk(*args)         # builds; fills the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(400_000_000)          # ~0.2 s of device time
+        vals, idx = cuda_cs.sketch_estimate_topk(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert vals.shape == idx.shape == (25_000,)
+
+
+def test_select_geometry_comes_from_the_library(dev):
+    """The wrapper sizes the fused selection's scratch by what
+    estimate_select.cu compiles in: a main-path chunk of 2**24 ids is 4,096
+    tiles in 16 groups, and its zeroed words hold the state and 16 64-bit
+    group counts."""
+    geo = cuda_cs.select_geometry()
+    assert geo.tile == 4096 and geo.group_tiles == 256
+    assert geo.tiles(1 << 24) == 4096 and geo.tiles(1) == 1
+    assert geo.work_words(1 << 24) == geo.state_words + 32
+    assert geo.state_words % 2 == 0
+
+
+def test_estimate_topk_rejects_what_it_does_not_take(dev):
+    table = torch.randn(3, 128, device=dev)
+    before = cuda_cs.LAUNCHES["estimate"]
+    for kk in (0, 11):
+        with pytest.raises(ValueError, match="kk"):
+            cuda_cs.sketch_estimate_topk(table, 0, 10, kk)
+    with pytest.raises(ValueError, match="ids"):
+        cuda_cs.sketch_estimate_topk(table, 0, 0, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_cs.sketch_estimate_topk(table.cpu(), 0, 10, 5)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_cs.sketch_estimate_topk(torch.zeros(11, 128, device=dev), 0, 10,
+                                     5)
+    assert cuda_cs.LAUNCHES["estimate"] == before
+
+
+def test_dispatch_sends_the_fused_selection_to_its_kernel(dev):
+    """One launch counted a call, under the span
+    ``kernel.estimate[cuda:select]``."""
+    from repro_torch import obs
+    table = torch.randn(3, 256, device=dev)
+    ops.reset_launch_counts()
+    sink = obs.MemorySink()
+    ops.set_telemetry(obs.Telemetry([sink], trace=True))
+    try:
+        vals, idx = ops.sketch_estimate_topk(table, 0, 1000, 64)
+    finally:
+        ops.set_telemetry(None)
+    assert ops.launch_counts()["estimate"] == 1 and vals.is_cuda
+    assert [e["name"] for e in sink.events] == ["kernel.estimate[cuda:select]"]
+
+
 @pytest.mark.parametrize("rows,cols", [(3, 130), (5, 1 << 20), (1, 7)])
 def test_momentum_error_matches_plain_bitwise(dev, rows, cols):
     gen = torch.Generator().manual_seed(cols)
@@ -265,8 +413,8 @@ def test_profile_round_times_the_three_parts_of_the_server_topk(dev):
     table = torch.randn(5, 1000, device=dev)
     parts = profile_round.time_topk(table, lay, 20)
     assert parts["chunks"] == lay.num_chunks
-    assert all(parts[k] > 0 for k in ("estimate", "chunk_topk",
-                                      "final_topk"))
+    assert all(parts[k] > 0 for k in ("estimate_select", "estimate",
+                                      "chunk_topk", "final_topk"))
 
 
 @pytest.mark.parametrize("rows", range(1, 11))
