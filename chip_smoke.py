@@ -61,7 +61,20 @@ In order, it
    rounds of FetchSGD on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24
    layers), xlstm-350m, whisper-small and pixtral-12b (8 of its 40
    layers), every kernel's launches counted;
-10. prints the kernels line, the card's name and power limit, and last
+10. runs the mesh train step at full width (``mesh``): qwen3-0.6b at
+    seq 64, global batch 8, the 5 x 2**20 sketch and k = 25,000; as a
+    world of 1 (nccl) through ``python -m repro_torch.launch.train
+    --rounds 3`` in flat, tree, dense, async (round 1 straggles) and
+    model_local, each run's launches counted and equal to the
+    single-device step's, round 0 of flat and dense held against the
+    single-device ``F.step``; then two ranks sharing the card (gloo over
+    CUDA tensors): mesh 2x1 flat, tree and weighted (0.5, 2.5) against the
+    single-device step on the (weighted) mean of the batch's halves'
+    gradients, weighted flat = weighted tree, mesh 1x2 model_local (view
+    permutations, strided chunks) against gathered; seconds per round and
+    of one table's all_reduce (``chip_smoke_mesh.json``);
+11. prints the kernels line (with each kernel's launches in the mesh
+    phase's world-of-1 runs), the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1552,6 +1565,413 @@ def frontend_fetchsgd_run(torch, dev, arch, cfg, params,
                 traffic=meter.compression(cpr))
 
 
+# -- the mesh phase --------------------------------------------------------------
+
+MESH_ARCH = "qwen3-0.6b"                 # the mesh CLI's default arch
+MESH_POLICIES = (("flat", []), ("tree", []), ("dense", []),
+                 # round 1 draws 0.38 < 0.5 (seed 1234): it straggles and
+                 # lands in round 2's merge
+                 ("async", ["--straggle-prob", "0.5"]),
+                 ("model_local", ["--sketch-mode", "model_local"]))
+MESH_ARGV = ["--rounds", "3", "--cols", str(COLS), "--k", str(K)]
+MESH_LR = 0.1
+MESH_WEIGHTS = (0.5, 2.5)
+# Delta of two runs that add the same terms in another order (the encode's
+# float atomics, a gloo sum, a mean of sketches for a sketch of a mean):
+# an id may trade places only with one whose |value| ties the k-th within
+# this, and the common values agree to it
+DELTA_RTOL = 1e-4
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tree_clone(torch, tree):
+    from repro_torch.core import layout as layout_lib
+    return layout_lib.tree_map(lambda t: t.clone(), tree)
+
+
+def delta_gap(torch, after_a, after_b, before) -> dict:
+    """Compare two parameter updates from the same weights: the changed
+    ids as sets and the common values.  Returns the numbers the checks
+    read: sizes, the ids in one set only and whether each ties the k-th
+    |value| within ``DELTA_RTOL``, the largest relative gap of a common
+    value."""
+    from repro_torch.core import layout as layout_lib
+    da, db = {}, {}
+    for (p, a), (_, b), (_, w) in zip(layout_lib.flatten(after_a),
+                                      layout_lib.flatten(after_b),
+                                      layout_lib.flatten(before)):
+        for d, out in ((a - w, da), (b - w, db)):
+            flat = d.reshape(-1).float()
+            idx = torch.nonzero(flat).flatten()
+            out[p] = (idx.cpu(), flat[idx].cpu())
+    ids_a = {(p, int(i)) for p, (idx, _) in da.items() for i in idx}
+    ids_b = {(p, int(i)) for p, (idx, _) in db.items() for i in idx}
+    val_a = {(p, int(i)): float(v) for p, (idx, vs) in da.items()
+             for i, v in zip(idx, vs)}
+    val_b = {(p, int(i)): float(v) for p, (idx, vs) in db.items()
+             for i, v in zip(idx, vs)}
+    kth = min(abs(v) for v in val_b.values()) if val_b else 0.0
+    only = [val_a[i] for i in ids_a - ids_b] + [val_b[i] for i in
+                                                 ids_b - ids_a]
+    common = ids_a & ids_b
+    gap = max((abs(val_a[i] - val_b[i]) / abs(val_b[i]) for i in common),
+              default=0.0)
+    return dict(n_a=len(ids_a), n_b=len(ids_b), only=len(only),
+                only_tied=all(abs(abs(v) - kth) <= DELTA_RTOL * kth
+                              for v in only), max_rel_gap=gap)
+
+
+def check_delta(gap: dict, what: str) -> None:
+    check(gap["n_a"] == gap["n_b"] == K and gap["only_tied"]
+          and gap["max_rel_gap"] <= DELTA_RTOL,
+          f"{what}: Delta has {K} ids on both sides, {gap['only']} traded "
+          f"only at ties of the k-th, values within "
+          f"{gap['max_rel_gap']:.2e} (rtol {DELTA_RTOL})")
+
+
+def mesh_batch(torch, dev, cfg, seq: int = 64, batch: int = 8) -> dict:
+    """The mesh CLI's round-0 batch (``ClassShardLM`` client 0)."""
+    from repro_torch.data import synthetic
+    ds = synthetic.ClassShardLM(vocab=cfg.vocab, seq_len=seq, n_clients=256,
+                                samples_per_client=batch)
+    cb = ds.client_batch(0)
+    return {k: torch.as_tensor(cb[k][:batch], dtype=torch.int64, device=dev)
+            for k in ("tokens", "labels")}
+
+
+def mesh_world_of_1(torch, dev, smi_line: str) -> dict:
+    """A world of 1 (nccl) at full width: the CLI once a policy, with
+    kernel launches counted a run, and round 0 of ``flat`` (and ``dense``)
+    held against the single-device ``F.step``."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib, shapes, steps, train
+    from repro_torch.models import transformer
+
+    mesh_lib.init_from_env(dev.type)
+    check(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+          "the world of 1 on the card uses nccl")
+    d, n_chunks, _ = FETCH_LAYOUTS[MESH_ARCH]
+    runs = {}
+    for name, extra in MESH_POLICIES:
+        agg = "flat" if name == "model_local" else name
+        argv = MESH_ARGV + ["--aggregate", agg] + extra
+        sync(torch, dev)
+        ops.reset_launch_counts()
+        res = train.main(argv + ["--device", dev.type],
+                         log=lambda line: print("  " + line))
+        counts = ops.launch_counts()
+        updates = sum("[straggled]" not in r.tag for r in res)
+        check(counts == {"encode": len(res) * n_chunks,
+                         "estimate": updates * n_chunks,
+                         "momentum_error": updates, "topk_mask": updates},
+              f"mesh {name}: {n_chunks} encodes a round, {n_chunks} "
+              f"estimates, 1 momentum_error and 1 topk_mask an update "
+              f"({updates} of {len(res)} rounds), as the single-device step")
+        check(all(math.isfinite(r.loss) for r in res),
+              f"mesh {name}: every loss finite")
+        runs[name] = dict(argv=argv, losses=[r.loss for r in res],
+                          seconds=[r.seconds for r in res],
+                          tags=[r.tag for r in res], launches=counts)
+        print(f"mesh {name}: s/round {runs[name]['seconds']} ({smi_line})")
+    check("[straggled]" in runs["async"]["tags"][1]
+          and "late merged: 1" in runs["async"]["tags"][2],
+          "mesh async: round 1 straggled and merged late in round 2")
+    check(runs["dense"]["losses"][0] == runs["flat"]["losses"][0],
+          "mesh dense: round 0's loss = flat's")
+
+    # round 0 of flat and dense against the single-device step, lr 0.1
+    cfg = configs.get_config(MESH_ARCH)
+    mesh = mesh_lib.make_debug_mesh(1, 1, dev.type)
+    fs = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    shape = shapes.ShapeSpec("train", "train", 64, 8)
+    init = transformer.init_params(cfg, seed=0, device=dev)
+    batch = mesh_batch(torch, dev, cfg)
+    lr = torch.full((), MESH_LR, device=dev)
+    single = tree_clone(torch, init)
+    loss1, grads = transformer.value_and_grad(single, batch, cfg)
+    lay = steps.build_layout(cfg, mesh)
+    check(lay.total == d and lay.num_chunks == n_chunks,
+          f"the mesh layout of {MESH_ARCH} has d = {d:,} in {n_chunks} chunks")
+    table1 = F.sketch_grads(grads, lay, fs)
+    del grads
+    delta, _ = F.server_step(table1, F.init_state(fs, dev), lr, lay, fs)
+    F.apply_delta(single, lay, delta)
+    out = dict(runs=runs)
+    for name in ("flat", "dense"):
+        mine = tree_clone(torch, init)
+        bundle = steps.make_train_step(cfg, shape, mesh, fs, aggregate=name)
+        mine, _, m = bundle.fn(mine, F.init_state(fs, dev), batch, lr)
+        err = max_abs_err(torch, m["table"], table1)
+        scale = float(table1.abs().max())
+        check(math.isclose(float(m["loss"]), float(loss1), rel_tol=1e-5),
+              f"mesh {name} round 0: loss {float(m['loss']):.6f} = the "
+              f"single-device step's {float(loss1):.6f} (rtol 1e-5)")
+        check(err <= 1e-5 * scale,
+              f"mesh {name} round 0: table within {err:.3e} of the "
+              f"single-device step's (largest {scale:.3e}; float atomics)")
+        gap = delta_gap(torch, mine, single, init)
+        check_delta(gap, f"mesh {name} round 0 vs the single-device step")
+        out[name + "_vs_single"] = dict(table_err=err, table_max=scale, **gap)
+        del mine
+    del single, init
+    dist.destroy_process_group()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, dev_type: str) -> dict:
+    """One rank of the 2-rank world on one card (gloo over CUDA tensors):
+    the probes, mesh 2x1 (flat, tree and weighted against the
+    single-device step on the mean, or the weighted mean, of the batch's
+    halves' gradients) and mesh 1x2 (model_local against gathered), with
+    seconds per round and of one table's all_reduce."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib, shapes, steps
+    from repro_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dev_type == "cuda" else torch.device(dev_type)
+    out = dict(backend=dist.get_backend())
+    probe = torch.full((4,), rank + 1.0, device=dev)
+    dist.all_reduce(probe)
+    sync(torch, dev)
+    out["all_reduce_cuda"] = probe.tolist()
+    try:
+        a2a = torch.full((2, 3), float(rank), device=dev)
+        got = torch.empty_like(a2a)
+        dist.all_to_all_single(got, a2a)
+        sync(torch, dev)
+        out["all_to_all_cuda"] = got.tolist()
+    except (RuntimeError, ValueError) as e:      # recorded, not hidden
+        out["all_to_all_cuda"] = f"{type(e).__name__}: {e}"
+
+    cfg = configs.get_config(MESH_ARCH)
+    fs = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    shape = shapes.ShapeSpec("train", "train", 64, 8)
+    init = transformer.init_params(cfg, seed=0, device=dev)
+    batch = mesh_batch(torch, dev, cfg)
+    lr = torch.full((), MESH_LR, device=dev)
+
+    def timed(fn):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, dev)
+        return res, time.perf_counter() - t0
+
+    # the single-device references: each half's gradient, in this process
+    halves = []
+    for i in range(2):
+        half = {k: v[4 * i:4 * i + 4] for k, v in batch.items()}
+        halves.append(transformer.value_and_grad(init, half, cfg))
+
+    def reference(weights, lay):
+        w0, w1 = weights
+        g = layout_lib.tree_map(lambda a, b: (w0 * a + w1 * b) / (w0 + w1),
+                                halves[0][1], halves[1][1])
+        p = tree_clone(torch, init)
+        F.step(p, g, F.init_state(fs, dev), lr, lay, fs)
+        return p
+
+    mesh = mesh_lib.make_debug_mesh(2, 1, dev_type)
+    table = torch.randn(ROWS, COLS, device=dev)
+    mesh.all_sum(table.clone(), ("data",))
+    reps = []
+    for _ in range(5):
+        _, s = timed(lambda: mesh.all_sum(table, ("data",)))
+        reps.append(s)
+    out["all_reduce_table_s"] = reps
+    out["runs"] = {}
+    lay = steps.build_layout(cfg, mesh)
+    ref = {(1.0, 1.0): reference((1.0, 1.0), lay),
+           MESH_WEIGHTS: reference(MESH_WEIGHTS, lay)}
+    out["loss_halves"] = [float(h[0]) for h in halves]
+    del halves
+    firsts = {}
+    for name, agg, weighted in (("flat", "flat", False),
+                                ("tree", "tree", False),
+                                ("weighted-flat", "flat", True),
+                                ("weighted-tree", "tree", True)):
+        bundle = steps.make_train_step(cfg, shape, mesh, fs, aggregate=agg,
+                                       weighted=weighted)
+        extra = (MESH_WEIGHTS,) if weighted else ()
+        params, opt = tree_clone(torch, init), F.init_state(fs, dev)
+        ops.reset_launch_counts()
+        seconds, losses = [], []
+        for r in range(3):
+            (params, opt, m), s = timed(lambda: bundle.fn(
+                params, opt, batch, lr, *extra))
+            seconds.append(s)
+            losses.append(float(m["loss"]))
+            if r == 0:
+                gap = delta_gap(torch, params, ref[MESH_WEIGHTS if weighted
+                                                   else (1.0, 1.0)], init)
+                if weighted:
+                    firsts[name] = tree_clone(torch, params)
+        out["runs"][name] = dict(
+            seconds=seconds, losses=losses, launches=ops.launch_counts(),
+            expected=dict(encode=3 * len(bundle.layout.local_chunks),
+                          estimate=3 * bundle.layout.num_chunks,
+                          momentum_error=3, topk_mask=3),
+            vs_single=gap)
+        del params, opt
+    out["weighted_flat_vs_tree"] = max(
+        float((a - b).abs().max()) for (_, a), (_, b) in zip(
+            layout_lib.flatten(firsts["weighted-flat"]),
+            layout_lib.flatten(firsts["weighted-tree"])))
+    del firsts, ref
+
+    mesh12 = mesh_lib.make_debug_mesh(1, 2, dev_type)
+    lay12 = steps.build_layout(cfg, mesh12)
+    out["perms_1x2"] = sum(p is not None for p in lay12.leaf_perms)
+    s_m = mesh12.index("model")
+    after = {}
+    for name in ("gathered", "model_local"):
+        bundle = steps.make_train_step(cfg, shape, mesh12, fs,
+                                       sketch_mode=name)
+        params = tree_clone(torch, init)
+        ops.reset_launch_counts()
+        (params, _, m), s = timed(lambda: bundle.fn(
+            params, F.init_state(fs, dev), batch, lr))
+        after[name] = params
+        plan = bundle.plan
+        encodes = len(bundle.layout.local_chunks) if plan is None else sum(
+            c.n_cols == c.row_stride and (c.mode != "replicated" or s_m == 0)
+            for c in plan.chunks)
+        out["runs"]["1x2-" + name] = dict(
+            seconds=[s], losses=[float(m["loss"])],
+            launches=ops.launch_counts(),
+            expected=dict(encode=encodes, estimate=bundle.layout.num_chunks,
+                          momentum_error=1, topk_mask=1),
+            strided_chunks=0 if plan is None else sum(
+                c.n_cols < c.row_stride for c in plan.chunks))
+    out["model_local_vs_gathered"] = delta_gap(
+        torch, after["model_local"], after["gathered"], init)
+    del after, init
+    if isinstance(out["all_to_all_cuda"], list):
+        out["moe_ep"] = moe_ep_check(torch, mesh, dev)
+    return out
+
+
+def moe_ep_check(torch, mesh, dev) -> dict:
+    """One MoE layer of qwen2-moe-a2.7b at full width (60 experts, 30 a
+    rank; no-drop capacity): ``moe_apply_ep`` over the 2 data ranks
+    against ``moe_apply`` of both ranks' tokens, with the seconds of
+    each."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    cfg = moe.no_drop(configs.get_config("qwen2-moe-a2.7b"))
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=dev).mul_(scale)
+
+    p = {"router": normal(d, E, scale=d ** -0.5),
+         "w_gate": normal(E, d, f, scale=d ** -0.5),
+         "w_up": normal(E, d, f, scale=d ** -0.5),
+         "w_down": normal(E, f, d, scale=f ** -0.5)}
+    x = normal(4, 64, d, scale=1.0)
+    n, r = mesh.shape["data"], mesh.index("data")
+    e_loc, b = E // n, x.shape[0] // n
+    local = {k: v[r * e_loc:(r + 1) * e_loc] if k != "router" else v
+             for k, v in p.items()}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    y, _ = moe.moe_apply_ep(local, x[r * b:(r + 1) * b], cfg,
+                            mesh.group(("data",)))
+    sync(torch, dev)
+    t_ep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = moe.moe_apply(p, x, cfg)
+    sync(torch, dev)
+    t_local = time.perf_counter() - t0
+    want = want[r * b:(r + 1) * b]
+    return dict(max_abs_err=float((y - want).abs().max()),
+                max_abs=float(want.abs().max()), ep_s=t_ep, local_s=t_local)
+
+
+def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
+    """Two ranks on the one card (gloo over CUDA tensors)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    res = mesh_lib.spawn(mesh_rank, 2, (dev.type,), device=dev.type,
+                         timeout=600)
+    r0 = res[0]
+    check(all(r["backend"] == "gloo" for r in res),
+          "two ranks on one card use gloo")
+    check(all(r["all_reduce_cuda"] == [3.0] * 4 for r in res),
+          "gloo all_reduce sums CUDA tensors")
+    for name, run in r0["runs"].items():
+        print(f"mesh 2-rank {name}: losses {run['losses']} s/round "
+              f"{run['seconds']} launches {run['launches']} ({smi_line})")
+        check(run["launches"] == run["expected"],
+              f"mesh 2-rank {name}: rank 0 launched {run['expected']} (one "
+              f"encode a contiguous local chunk, one estimate a chunk, one "
+              f"momentum_error and topk_mask a round)")
+    for name in ("flat", "tree", "weighted-flat", "weighted-tree"):
+        check_delta(r0["runs"][name]["vs_single"],
+                    f"mesh 2x1 {name} round 0 vs the single-device step on "
+                    f"the {'weighted ' if 'weighted' in name else ''}mean "
+                    f"of the halves' gradients")
+    mean = sum(r0["loss_halves"]) / 2
+    check(math.isclose(r0["runs"]["flat"]["losses"][0], mean, rel_tol=1e-6),
+          f"mesh 2x1 flat round 0: loss = the halves' mean {mean:.6f}")
+    err = r0["weighted_flat_vs_tree"]
+    check(err <= 1e-5, f"mesh 2x1 weighted flat = weighted tree within "
+          f"{err:.2e} (1e-5)")
+    check(r0["perms_1x2"] > 0 and r0["runs"]["1x2-model_local"][
+        "strided_chunks"] > 0,
+          f"mesh 1x2: {r0['perms_1x2']} permuted views and "
+          f"{r0['runs']['1x2-model_local']['strided_chunks']} strided chunks")
+    check_delta(r0["model_local_vs_gathered"],
+                "mesh 1x2 model_local vs gathered")
+    ar = r0["all_reduce_table_s"]
+    print(f"mesh 2-rank: all_reduce of one {ROWS * COLS * 4 / 1e6:.2f} MB "
+          f"table {ar} s; all_to_all on CUDA tensors: "
+          f"{r0['all_to_all_cuda']} ({smi_line})")
+    if "moe_ep" in r0:
+        for r in res:
+            ep = r["moe_ep"]
+            check(ep["max_abs_err"] <= 1e-4 * ep["max_abs"],
+                  f"mesh 2x1 moe_apply_ep (qwen2-moe layer, 60 experts over "
+                  f"2 ranks) = moe_apply within {ep['max_abs_err']:.2e} of "
+                  f"{ep['max_abs']:.3f} (rtol 1e-4); {ep['ep_s']:.4f} s vs "
+                  f"{ep['local_s']:.4f} s")
+    else:
+        print("mesh 2-rank: gloo's all_to_all takes no CUDA tensors here; "
+              "the EP exchange on the card waits for two cards")
+    return dict(all_reduce_table_s=ar, all_to_all_cuda=r0["all_to_all_cuda"],
+                moe_ep=[r.get("moe_ep") for r in res], runs=r0["runs"],
+                loss_halves=r0["loss_halves"],
+                model_local_vs_gathered=r0["model_local_vs_gathered"])
+
+
+def mesh_phase(torch, dev, smi_line: str) -> dict:
+    """The mesh train step at full width (qwen3-0.6b, seq 64, global batch
+    8, the main path's 5 x 2**20 sketch, k = 25,000): a world of 1 through
+    the CLI in every policy, then two ranks sharing the card."""
+    t0 = time.time()
+    one = mesh_world_of_1(torch, dev, smi_line)
+    two = mesh_world_of_2(torch, dev, smi_line)
+    return dict(world_of_1=one, world_of_2=two, seconds=time.time() - t0)
+
+
 def main() -> int:
     # the serve phase frees and allocates models of 35-54 GiB one after
     # another, and qwen2-moe's FetchSGD run then needs all but a few GiB
@@ -1612,6 +2032,13 @@ def main() -> int:
     serve = serve_phase(torch, dev, smi)
     (OUT / "chip_smoke_serve.json").write_text(json.dumps(
         {"device": smi, **serve}, indent=1))
+    print("mesh: the mesh train step at full width")
+    mesh = mesh_phase(torch, dev, smi)
+    (OUT / "chip_smoke_mesh.json").write_text(json.dumps(
+        {"device": smi, **mesh}, indent=1))
+    mesh_launches = {k: sum(r["launches"][k] for r in
+                            mesh["world_of_1"]["runs"].values())
+                     for k in counts}
 
     meta = {
         "encode": ("src/repro_torch/kernels/csrc/encode.cu",
@@ -1631,6 +2058,7 @@ def main() -> int:
          "bound_ms": kernels[k]["bound_ms"],
          "bound_by": kernels[k]["bound_by"],
          "library_ms": kernels[k].get("library_ms"),
+         "mesh_launches": mesh_launches[k],
          **{sub: kernels[k][sub] for sub in ("one_pass", "estimate_only")
             if sub in kernels[k]}}
         for k, (src, rep) in meta.items()]}

@@ -63,21 +63,30 @@ def init_state(cfg: FetchSGDConfig, device=None) -> FetchSGDState:
 
 
 def sketch_grads(grads: dict, layout: layout_lib.ParamLayout,
-                 cfg: FetchSGDConfig) -> torch.Tensor:
+                 cfg: FetchSGDConfig, shard_idx: int | None = None,
+                 local: bool = False) -> torch.Tensor:
     """Client-side compression: S(g) for a gradient tree.
 
     By linearity each chunk adds an independent partial table; the encode
-    kernel adds every chunk into one table, in the reference's chunk order.
+    kernel adds every local chunk into one table, in the reference's
+    order (chunks grouped by leaf, rows and offset count).  ``local``: the
+    grads are a rank's shard-local tree (EP leaves sliced), and an
+    expert-parallel chunk takes the global offset of data shard
+    ``shard_idx`` (a Python int, as every offset here is).
     """
-    views = layout_lib.leaf_views(grads, layout)
+    views = layout_lib.leaf_views(grads, layout, local=local)
     table = torch.zeros(cfg.rows, cfg.cols, dtype=torch.float32,
                         device=views[0].device)
-    for g in layout.groups:
-        for ci in g.chunk_ids:
-            ch = layout.chunks[ci]
-            vals = views[ch.leaf][ch.row_start:ch.row_start + ch.n_rows]
-            kernel_ops.sketch_encode(vals.reshape(-1), ch.offset, cfg.rows,
-                                     cfg.cols, cfg.hash_key, out=table)
+    groups: dict[tuple[int, int, int], list] = {}
+    for lc in layout.local_chunks:
+        groups.setdefault((lc.leaf, lc.n_rows, len(lc.offsets)),
+                          []).append(lc)
+    for _, lcs in sorted(groups.items()):
+        for lc in lcs:
+            si = (shard_idx or 0) if len(lc.offsets) > 1 else 0
+            kernel_ops.sketch_encode(layout_lib.chunk_values(views, lc),
+                                     lc.offsets[si], cfg.rows, cfg.cols,
+                                     cfg.hash_key, out=table)
     return table
 
 
@@ -135,9 +144,11 @@ def server_step_reference(agg_table: torch.Tensor, state: FetchSGDState, lr,
 
 
 def apply_delta(params: dict, layout: layout_lib.ParamLayout,
-                delta: topk_lib.SparseDelta) -> dict:
+                delta: topk_lib.SparseDelta, shard_idx: int | None = None,
+                local: bool = False) -> dict:
     """w <- w - Delta in place (Delta already carries the learning rate)."""
-    return topk_lib.apply_delta(params, layout, delta, scale=1.0)
+    return topk_lib.apply_delta(params, layout, delta, scale=1.0,
+                                shard_idx=shard_idx, local=local)
 
 
 def step(params: dict, grads: dict, state: FetchSGDState, lr,

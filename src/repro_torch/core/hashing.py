@@ -88,3 +88,48 @@ def offset_words(offsets, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     hi = torch.tensor([o >> 32 for o in offsets], dtype=torch.int64,
                       device=device)
     return lo, hi
+
+
+def mul32x32(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Widening multiply: 32-bit words ``a`` (int64 tensor) x a Python int
+    ``b < 2**31`` -> the (hi, lo) words of the 64-bit product.
+
+    Long multiplication over 16-bit halves with explicit carries, as the
+    reference assembles 64-bit ids from 32-bit lanes; each partial product
+    stays below 2**32, so int64 holds it exactly.
+    """
+    bl, bh = b & 0xFFFF, (b >> 16) & 0xFFFF
+    al, ah = a & 0xFFFF, a >> 16
+    ll, lh, hl, hh = al * bl, al * bh, ah * bl, ah * bh
+    mid = (lh + hl) & MASK
+    mid_carry = (mid < lh).to(torch.int64)           # overflowed 32 bits
+    lo = (ll + (mid << 16)) & MASK
+    c1 = (lo < ll).to(torch.int64)
+    hi = (hh + (mid >> 16) + (mid_carry << 16) + c1) & MASK
+    return hi, lo
+
+
+def ids_for_grid(base_lo: int, base_hi: int, row0: int, n_rows: int,
+                 row_stride: int, col0: int, n_cols: int, device=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the strided id grid
+    ``base + (row0 + r) * row_stride + col0 + c`` (r < n_rows, c < n_cols),
+    flattened row-major to (n_rows * n_cols,).
+
+    The ids of a model shard's column slice of a leaf's 2-D view
+    (``core.model_local``); every quantity that can pass 32 bits is a
+    (hi, lo) pair, wrapping as the reference's uint32 words do.
+    """
+    r = (torch.arange(n_rows, dtype=torch.int64, device=device) + row0) & MASK
+    rs_hi, rs_lo = mul32x32(r, row_stride)
+    lo_r = (rs_lo + base_lo) & MASK
+    hi_r = (rs_hi + base_hi + (lo_r < rs_lo).to(torch.int64)) & MASK
+    c = (torch.arange(n_cols, dtype=torch.int64, device=device) + col0) & MASK
+    lo = (lo_r[:, None] + c[None, :]) & MASK
+    hi = (hi_r[:, None] + (lo < lo_r[:, None]).to(torch.int64)) & MASK
+    return hi.reshape(-1), lo.reshape(-1)
+
+
+def join_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 global ids from their (hi, lo) words (ids below 2**63)."""
+    return (hi << 32) | lo

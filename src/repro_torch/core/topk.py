@@ -14,6 +14,12 @@ pool, and ``topk_dense``'s, stay library calls (``torch.topk``), as
 ``lax.top_k`` stayed XLA in the reference.  ``torch.topk`` does not
 promise ``lax.top_k``'s order among equal magnitudes.
 
+The ids are defined over each leaf's permuted 2-D view when the layout
+has view permutations (``layout.build_layout(view_perms=)``), so
+``global_ids`` and ``densify`` follow the permuted order; ``apply_delta``
+writes each permuted leaf through the inverse permutation, and on a mesh
+with expert-parallel leaves only the chunks the rank's data shard owns.
+
 Exactness: with at most ``EXACT_CHUNK_LIMIT`` chunks every chunk gives k
 candidates, so the result is exactly Top-k(U(S_e)); larger layouts cap
 the per-chunk count (``_chunk_k``).
@@ -105,22 +111,57 @@ def global_ids(delta: SparseDelta, layout: layout_lib.ParamLayout
     return offs[delta.chunk_id] + delta.local_idx
 
 
-def apply_delta(params: dict, layout: layout_lib.ParamLayout,
-                delta: SparseDelta, scale: float = 1.0) -> dict:
-    """params <- params - scale * Delta, **in place** (``index_add_`` into
-    each leaf's flat view); returns ``params``.
+def _storage_index(idx: torch.Tensor, shape: tuple[int, ...], perm,
+                   strides: tuple[int, ...]) -> torch.Tensor:
+    """Flat indices in the PERMUTED order of a leaf whose permuted shape
+    is ``shape`` -> offsets into the leaf's storage (its own strides):
+    the write back through the inverse permutation, with no copy."""
+    out = torch.zeros_like(idx)
+    rem = idx
+    for dim in reversed(range(len(shape))):
+        out += (rem % shape[dim]) * strides[perm[dim]]
+        rem = rem // shape[dim]
+    return out
 
-    Ids outside a leaf add ``-0.0`` at its element 0, which leaves every
-    value unchanged, so no host sync is needed to split the ids by leaf.
+
+def apply_delta(params: dict, layout: layout_lib.ParamLayout,
+                delta: SparseDelta, scale: float = 1.0,
+                shard_idx: int | None = None, local: bool = False) -> dict:
+    """params <- params - scale * Delta, **in place** (``index_add_`` into
+    each leaf's flat storage); returns ``params``.
+
+    Each entry's chunk gives its leaf and its first element in the leaf's
+    (local, permuted) view, all from device tables, so no host sync is
+    needed to split the ids by leaf: an entry of another leaf, or of an
+    EP chunk owned by another data shard than ``shard_idx``, adds
+    ``-0.0`` at element 0, which leaves every value unchanged.  A permuted
+    leaf is written through the inverse permutation.  ``local``: the
+    params are a rank's shard-local tree (EP leaves sliced).
     """
-    gid = global_ids(delta, layout)
+    dev = delta.values.device
+    leaf_of = torch.tensor([ch.leaf for ch in layout.chunks],
+                           dtype=torch.int64, device=dev)[delta.chunk_id]
+    start = torch.tensor([(ch.lrs if local else ch.row_start) * ch.row_len
+                          for ch in layout.chunks],
+                         dtype=torch.int64, device=dev)[delta.chunk_id]
+    pos = start + delta.local_idx
+    mine = torch.ones_like(pos, dtype=torch.bool)
+    if shard_idx is not None and layout.has_ep:
+        owner = torch.tensor([-1 if ch.owner is None else ch.owner
+                              for ch in layout.chunks],
+                             dtype=torch.int64, device=dev)[delta.chunk_id]
+        mine = (owner < 0) | (owner == shard_idx)
+    shapes = layout.leaf_local_shapes if local else layout.leaf_shapes
     leaves = [leaf for _, leaf in layout_lib.flatten(params)]
     with torch.no_grad():
-        for leaf, start in zip(leaves, layout.leaf_offsets):
+        for i, (leaf, shape, perm) in enumerate(zip(leaves, shapes,
+                                                    layout.leaf_perms)):
+            sel = mine & (leaf_of == i)
+            idx = torch.where(sel, pos, 0)
+            if perm is not None:
+                idx = _storage_index(idx, shape, perm, leaf.stride())
+            vals = torch.where(sel, delta.values, 0.0).to(leaf.dtype)
             flat = leaf.view(-1)
-            mine = (gid >= start) & (gid < start + flat.numel())
-            idx = torch.where(mine, gid - start, 0)
-            vals = torch.where(mine, delta.values, 0.0).to(flat.dtype)
             flat.index_add_(0, idx, vals, alpha=-scale)
     return params
 

@@ -492,3 +492,38 @@ def make_aggregator(policy: str, cfg: F.FetchSGDConfig, *, fanout: int = 4,
                                        max_age=max_age, device=device,
                                        telemetry=telemetry)
     raise ValueError(f"unknown aggregation policy {policy!r}")
+
+
+# -- the mesh counterpart (one rank a process, ``launch.mesh``) --------------
+
+def mesh_aggregate(table: torch.Tensor, mesh, axes: tuple[str, ...],
+                   policy: str = "flat",
+                   weight: float | None = None) -> torch.Tensor:
+    """Mean this rank's sketch table over the client ``axes`` of ``mesh``
+    (a ``launch.mesh.Mesh``); ``table`` itself is left as it is.
+
+    ``flat`` is one all_reduce over the client group.  ``tree`` reduces
+    one axis at a time, innermost first (within a pod, then across pods),
+    the mesh realization of ``TreeAggregator``: the same mean, each
+    collective over one link class.
+
+    ``weight`` (this rank's client shard's weight, FedSKETCH-style)
+    switches both to the exact weighted mean ``sum(w*t) / max(sum(w),
+    1e-8)``: numerator and denominator are reduced with the policy's
+    topology and divided once at the end.
+    """
+    if policy not in ("flat", "tree"):
+        raise ValueError(f"unknown mesh aggregation policy {policy!r}")
+    steps = [tuple(axes)] if policy == "flat" else [(a,) for a in
+                                                    reversed(axes)]
+    if weight is None:
+        out = table.clone()
+        for ax in steps:
+            mesh.all_mean(out, ax)
+        return out
+    num = table * weight
+    den = torch.full((), weight, dtype=torch.float32, device=table.device)
+    for ax in steps:
+        mesh.all_sum(num, ax)
+        mesh.all_sum(den, ax)
+    return num / den.clamp(min=1e-8)

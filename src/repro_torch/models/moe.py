@@ -1,10 +1,14 @@
 """Mixture-of-Experts FFN with capacity-based token dispatch.
 
-Port of ``repro.models.moe`` on one device (``moe_apply_ep``, the
-expert-parallel path, needs a mesh and is not ported).  Token-choice top-k
-routing with a fixed capacity per expert, dispatch into ``(E, cap, d)``
-buffers, the experts as three batched matmuls, and the Switch load-balance
-auxiliary loss.
+Port of ``repro.models.moe``.  Token-choice top-k routing with a fixed
+capacity per expert, dispatch into ``(E, cap, d)`` buffers, the experts as
+three batched matmuls, and the Switch load-balance auxiliary loss.
+
+Expert parallelism (``moe_apply_ep``): inside ``expert_parallel(group)``
+and with ``cfg.shard_experts_data``, each rank of the data axis's process
+group holds ``E / ep`` experts and its own tokens; the dispatch buffers
+travel to the experts' owners and back by ``all_to_all``, through an
+autograd function whose backward is the reverse exchange.
 
 Every kept (expert, slot) receives exactly one token, so dispatch is a
 copy of the kept rows, not a sum: the result does not depend on the order
@@ -19,9 +23,11 @@ Shared experts (qwen2-moe) are a dense swiglu MLP of width
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from . import layers
@@ -47,43 +53,142 @@ def no_drop(cfg: ArchConfig) -> ArchConfig:
         cfg, capacity_factor=cfg.n_experts / cfg.expert_top_k)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    """x: (B, S, d) -> (out (B, S, d), aux loss, a float32 0-d tensor)."""
-    B, S, d = x.shape
-    E, K = cfg.n_experts, cfg.expert_top_k
-    T = B * S
-    xt = x.reshape(T, d)
+# Expert-parallel context: the data axis's process group, set by the mesh
+# step (``launch.steps``) around its forward passes.
+_EP_GROUP: list = [None]
 
+
+@contextlib.contextmanager
+def expert_parallel(group):
+    """Route MoE layers through :func:`moe_apply_ep` over ``group`` (a
+    ``torch.distributed`` process group; None: the local path)."""
+    _EP_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _EP_GROUP.pop()
+
+
+def ep_axis():
+    """The active expert-parallel process group, or None."""
+    return _EP_GROUP[-1]
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """Dispatch to the expert-parallel path when its context is active."""
+    if ep_axis() is not None and cfg.shard_experts_data:
+        return moe_apply_ep(p, x, cfg, ep_axis())
+    return moe_apply_local(p, x, cfg)
+
+
+def _route(p: dict, xt: torch.Tensor, cfg: ArchConfig):
+    """Router: (probs (T, E), gate (T, K), eidx (T, K), slot (T*K,)) with
+    ``slot = e * cap + position``, or ``E * cap`` for a dropped token."""
+    E, K = cfg.n_experts, cfg.expert_top_k
+    T = xt.shape[0]
     logits = xt.to(torch.float32) @ p["router"].to(torch.float32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, eidx = torch.topk(probs, K, dim=-1)                     # (T, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
-
-    # position in expert: the exclusive cumsum of the one-hot over the
-    # token-major (T*K,) order, which decides which tokens drop
     cap = capacity(cfg, T)
     ef = eidx.reshape(-1)                                         # (T*K,)
     onehot = F.one_hot(ef, E)
     pos = torch.cumsum(onehot, dim=0) - onehot
     mypos = torch.gather(pos, 1, ef[:, None])[:, 0]
-    slot = torch.where(mypos < cap, ef * cap + mypos, E * cap)   # E*cap: drop
+    slot = torch.where(mypos < cap, ef * cap + mypos, E * cap)
+    return probs, gate, eidx, slot
 
-    xe = torch.repeat_interleave(xt, K, dim=0)                    # (T*K, d)
-    disp = x.new_zeros(E * cap + 1, d).index_copy(0, slot, xe)
-    disp = disp[:-1].reshape(E, cap, d)
 
-    h = layers.matmul(disp, p["w_gate"])                          # (E,cap,ff)
-    u = layers.matmul(disp, p["w_up"])
-    out_e = layers.matmul(F.silu(h) * u, p["w_down"])             # (E,cap,d)
-
-    out = torch.cat([out_e.reshape(E * cap, d),
-                     out_e.new_zeros(1, d)])[slot]                # (T*K, d)
+def _combine(out_e: torch.Tensor, slot, gate, probs, eidx, p: dict,
+             xt: torch.Tensor, x: torch.Tensor, cfg: ArchConfig):
+    """Gather each slot's expert output, weight it by its gate, add the
+    shared experts; the Switch aux loss."""
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.expert_top_k
+    T = B * S
+    out = torch.cat([out_e.reshape(-1, d), out_e.new_zeros(1, d)])[slot]
     y = (out.reshape(T, K, d) * gate[..., None].to(x.dtype)).sum(dim=1)
-
-    # load-balance aux (Switch): E * sum_e f_e * P_e
     frac = F.one_hot(eidx, E).to(torch.float32).mean(dim=(0, 1))
     aux = E * torch.sum(frac * probs.mean(dim=0)) * cfg.router_aux_coef
-
     if "shared" in p:
         y = y + layers.mlp(p["shared"], xt, "swiglu")
     return y.reshape(B, S, d), aux
+
+
+def _experts(p: dict, ein: torch.Tensor) -> torch.Tensor:
+    h = layers.matmul(ein, p["w_gate"])
+    u = layers.matmul(ein, p["w_up"])
+    return layers.matmul(F.silu(h) * u, p["w_down"])
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` over dim 0 (the peer index) with a gradient:
+    the exchange is its own reverse, so the backward is the same
+    exchange of the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    # all_to_all_single moves bytes: both sides must be row-major (a
+    # gradient can arrive with permuted strides, which empty_like keeps)
+    x = x.contiguous()
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def moe_apply_ep(p: dict, x: torch.Tensor, cfg: ArchConfig, group):
+    """Expert-parallel MoE over the ranks of ``group``.
+
+    ``x`` is this rank's tokens; ``p``'s expert stacks hold only the
+    ``E_loc = E / ep`` experts this rank owns (the router and the shared
+    experts whole).  Tokens route to *global* expert ids with the capacity
+    of THIS rank's tokens; the (ep, E_loc, cap, d) dispatch buffer goes to
+    the experts' owners by ``all_to_all`` (dim 0 is the destination, then
+    the source), the local experts run, and a reverse ``all_to_all``
+    brings the outputs home.
+    """
+    B, S, d = x.shape
+    ep = dist.get_world_size(group)
+    E_loc = p["w_gate"].shape[0]
+    if E_loc * ep != cfg.n_experts:
+        raise ValueError(f"{E_loc} local experts x {ep} shards != "
+                         f"{cfg.n_experts}")
+    T = B * S
+    cap = capacity(cfg, T)
+    xt = x.reshape(T, d)
+    probs, gate, eidx, slot = _route(p, xt, cfg)
+    # global slot e * cap + pos == (owner, local expert, pos) row-major
+    xe = torch.repeat_interleave(xt, cfg.expert_top_k, dim=0)
+    disp = x.new_zeros(cfg.n_experts * cap + 1, d).index_copy(0, slot, xe)
+    disp = disp[:-1].reshape(ep, E_loc, cap, d)
+    recv = _AllToAll.apply(disp, group)                   # dim 0: source
+    ein = recv.movedim(0, 1).reshape(E_loc, ep * cap, d)
+    out_e = _experts(p, ein)                               # (E_loc, ep*cap, d)
+    back = out_e.reshape(E_loc, ep, cap, d).movedim(1, 0).contiguous()
+    got = _AllToAll.apply(back, group)                     # (ep, E_loc, cap, d)
+    return _combine(got, slot, gate, probs, eidx, p, xt, x, cfg)
+
+
+def moe_apply_local(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """x: (B, S, d) -> (out (B, S, d), aux loss, a float32 0-d tensor)."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    T = B * S
+    cap = capacity(cfg, T)
+    xt = x.reshape(T, d)
+    probs, gate, eidx, slot = _route(p, xt, cfg)
+    # position in expert: the exclusive cumsum of the one-hot over the
+    # token-major (T*K,) order, which decides which tokens drop
+    xe = torch.repeat_interleave(xt, cfg.expert_top_k, dim=0)     # (T*K, d)
+    disp = x.new_zeros(E * cap + 1, d).index_copy(0, slot, xe)
+    out_e = _experts(p, disp[:-1].reshape(E, cap, d))            # (E,cap,d)
+    return _combine(out_e, slot, gate, probs, eidx, p, xt, x, cfg)

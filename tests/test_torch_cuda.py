@@ -825,3 +825,75 @@ def test_encdec_and_frontends_on_the_card_match_the_cpu(dev, arch):
     assert torch.equal(caches[1]["attn"]["pos_arr"].cpu(),
                        caches[0]["attn"]["pos_arr"])
     assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == prefix + 20
+
+
+def _mesh_world_of_1(rank: int) -> dict:
+    """A world of 1 on the card (nccl): each policy's first step against
+    the single-device ``F.step`` on the same weights and batch."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib, shapes, steps
+    from repro_torch.models import transformer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = configs.get_smoke("qwen3-0.6b")
+    fs = F.FetchSGDConfig(rows=3, cols=1 << 16, k=256, momentum=0.9)
+    mesh = mesh_lib.make_debug_mesh(1, 1, "cuda")
+    init = transformer.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab, (4, 32), generator=gen).to(dev)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    lr = torch.full((), 0.1, device=dev)
+
+    def clone():
+        return L.tree_map(lambda t: t.clone(), init)
+
+    single = clone()
+    loss, grads = transformer.value_and_grad(single, batch, cfg)
+    table = F.sketch_grads(grads, L.build_layout(single), fs)
+    F.step(single, grads, F.init_state(fs, dev), lr, L.build_layout(single),
+           fs)
+    out = {"backend": dist.get_backend(), "loss": float(loss)}
+    zeros = torch.zeros(3, 1 << 16, device=dev)
+    for name, kw, extra in (("flat", {}, ()), ("tree", dict(aggregate="tree"),
+                                               ()),
+                            ("dense", dict(aggregate="dense"), ()),
+                            ("async", dict(aggregate="async"),
+                             (1.0, zeros, 0.0)),
+                            ("model_local", dict(sketch_mode="model_local"),
+                             ())):
+        b = steps.make_train_step(cfg, shapes.ShapeSpec("t", "train", 32, 4),
+                                  mesh, fs, **kw)
+        p, _, m = b.fn(clone(), F.init_state(fs, dev), batch, lr, *extra)
+        changed = {}
+        for (path, a), (_, s), (_, w) in zip(L.flatten(p), L.flatten(single),
+                                             L.flatten(init)):
+            da, ds = (a - w).reshape(-1), (s - w).reshape(-1)
+            ia, is_ = torch.nonzero(da).flatten(), torch.nonzero(ds).flatten()
+            changed[path] = (ia.cpu().tolist(), is_.cpu().tolist(),
+                             float((da - ds).abs().max()),
+                             float(ds.abs().max()))
+        out[name] = dict(loss=float(m["loss"]), changed=changed,
+                         table_err=float((m["table"] - table).abs().max()),
+                         table_max=float(table.abs().max()))
+    return out
+
+
+def test_mesh_step_world_of_1_matches_the_single_device_step(dev):
+    """A world of 1 on the card (nccl), each policy against the
+    single-device step: the loss exactly, the table within 1e-5 of its
+    largest entry (the encode's float atomics), the updated ids equal and
+    the updates within 1e-5 of the largest."""
+    from repro_torch.launch import mesh as mesh_lib
+    res = mesh_lib.spawn(_mesh_world_of_1, 1, device="cuda", timeout=300)[0]
+    assert res["backend"] == "nccl"
+    for name in ("flat", "tree", "dense", "async", "model_local"):
+        r = res[name]
+        assert r["loss"] == res["loss"], name
+        assert r["table_err"] <= 1e-5 * r["table_max"], name
+        n = sum(len(ia) for ia, _, _, _ in r["changed"].values())
+        assert n == 256, (name, n)
+        top = max(m for _, _, _, m in r["changed"].values())
+        for path, (ia, is_, err, _) in r["changed"].items():
+            assert ia == is_, (name, path)
+            assert err <= 1e-5 * top, (name, path, err)
