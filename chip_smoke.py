@@ -73,7 +73,21 @@ In order, it
     gradients, weighted flat = weighted tree, mesh 1x2 model_local (view
     permutations, strided chunks) against gathered; seconds per round and
     of one table's all_reduce (``chip_smoke_mesh.json``);
-11. prints the kernels line (with each kernel's launches in the mesh
+11. runs the dry-run (``dryrun``): ``python -m repro_torch.launch.dryrun``
+    in processes that see no card (qwen3-0.6b train_4k at 16 x 16 and at
+    2 x 16 x 16, llama4-maverick-400b-a17b train_4k model_local), each
+    exiting 0 with its roofline row; then ``dryrun.run_one``'s prediction
+    for the mesh phase's step at mesh 1 x 1 against the same step as a
+    world of 1 on the card: the FLOPs ``FlopCounterMode`` counts on the
+    card equal the ``meta`` count, the peak memory of a round lies within
+    25% of the predicted per-rank memory, and the mesh phase's 2 x 1 flat
+    run's recorded collectives equal ``step_collective_bytes`` to the
+    byte; the forward and backward alone at 8 x 64 and 4 x 1024 tokens
+    (under ``FlopCounterMode`` and plain) against the live bytes and FLOPs
+    counted on ``meta``; seconds per round and the
+    step's and the model's FLOPs as shares of the bf16 and the float32
+    peak (``chip_smoke_dryrun.json``);
+12. prints the kernels line (with each kernel's launches in the mesh
     phase's world-of-1 runs), the card's name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -87,6 +101,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1739,7 +1754,7 @@ def mesh_rank(rank: int, dev_type: str) -> dict:
     from repro_torch.core import fetchsgd as F
     from repro_torch.core import layout as layout_lib
     from repro_torch.kernels import ops
-    from repro_torch.launch import mesh as mesh_lib, shapes, steps
+    from repro_torch.launch import analysis, mesh as mesh_lib, shapes, steps
     from repro_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1812,22 +1827,24 @@ def mesh_rank(rank: int, dev_type: str) -> dict:
         params, opt = tree_clone(torch, init), F.init_state(fs, dev)
         ops.reset_launch_counts()
         seconds, losses = [], []
-        for r in range(3):
-            (params, opt, m), s = timed(lambda: bundle.fn(
-                params, opt, batch, lr, *extra))
-            seconds.append(s)
-            losses.append(float(m["loss"]))
-            if r == 0:
-                gap = delta_gap(torch, params, ref[MESH_WEIGHTS if weighted
-                                                   else (1.0, 1.0)], init)
-                if weighted:
-                    firsts[name] = tree_clone(torch, params)
+        # each round's collectives, for the dry-run phase's formula
+        with analysis.CollectiveRecorder() as rec:
+            for r in range(3):
+                (params, opt, m), s = timed(lambda: bundle.fn(
+                    params, opt, batch, lr, *extra))
+                seconds.append(s)
+                losses.append(float(m["loss"]))
+                if r == 0:
+                    gap = delta_gap(torch, params, ref[
+                        MESH_WEIGHTS if weighted else (1.0, 1.0)], init)
+                    if weighted:
+                        firsts[name] = tree_clone(torch, params)
         out["runs"][name] = dict(
             seconds=seconds, losses=losses, launches=ops.launch_counts(),
             expected=dict(encode=3 * len(bundle.layout.local_chunks),
                           estimate=3 * bundle.layout.num_chunks,
                           momentum_error=3, topk_mask=3),
-            vs_single=gap)
+            vs_single=gap, collectives=rec.bytes(), rounds=3)
         del params, opt
     out["weighted_flat_vs_tree"] = max(
         float((a - b).abs().max()) for (_, a), (_, b) in zip(
@@ -1972,6 +1989,216 @@ def mesh_phase(torch, dev, smi_line: str) -> dict:
     return dict(world_of_1=one, world_of_2=two, seconds=time.time() - t0)
 
 
+# -- the dry-run phase -----------------------------------------------------------
+
+DRYRUN_COMBOS = (
+    ["--arch", "qwen3-0.6b", "--shape", "train_4k"],
+    ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod"],
+    ["--arch", "llama4-maverick-400b-a17b", "--shape", "train_4k",
+     "--sketch-mode", "model_local"])
+DRYRUN_MEM_RTOL = 0.25           # the card's peak against the prediction
+
+
+def dryrun_cli() -> list[dict]:
+    """The dry-run CLI on each of ``DRYRUN_COMBOS``, all at once, each in
+    a process that sees no card (a dry-run needs none): exit 0, its
+    roofline row."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for i, argv in enumerate(DRYRUN_COMBOS):
+        path = OUT / f"chip_smoke_dryrun_{i}.jsonl"
+        path.unlink(missing_ok=True)
+        procs.append((argv, path, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--json", str(path)], cwd=ROOT, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    rows = []
+    for argv, path, proc in procs:
+        t0 = time.time()
+        text, _ = proc.communicate(timeout=600)
+        print("\n".join("  " + line for line in text.splitlines()))
+        check(proc.returncode == 0,
+              f"dryrun {' '.join(argv)}: exit 0 without a card")
+        rec = json.loads(path.read_text())
+        row = (f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} "
+               f"| {rec['t_compute']*1e3:.2f} | {rec['t_memory']*1e3:.2f} "
+               f"| {rec['t_collective']*1e3:.2f} | {rec['bottleneck']} "
+               f"| {rec['useful']:.3f} | {rec['peak_mem']/2**30:.2f} |")
+        print(f"dryrun row: {row} ({rec['sketch_mode']}; a dry-run on the "
+              f"host, no card)")
+        rows.append(dict(argv=argv, record=rec, row=row,
+                         wait_s=time.time() - t0))
+    return rows
+
+
+DRYRUN_PASSES = ((8, 64), (4, 1024))    # (batch, seq): the step's, and
+                                         # one where the activations dominate
+
+
+def dryrun_activations(torch, dev, cfg, smi_line: str) -> list[dict]:
+    """The rank's forward and backward alone (qwen3-0.6b) at each of
+    ``DRYRUN_PASSES``: the live bytes the ``meta`` pass counts against the
+    card's peak over its own parameters and batch, once under
+    ``FlopCounterMode`` (whose FLOPs must equal the ``meta`` count) and
+    once plain, as the step runs it."""
+    from repro_torch.launch import analysis
+    from repro_torch.models import transformer
+
+    def grad(p, b):
+        return transformer.value_and_grad(p, b, cfg)
+
+    def peak_of(fn):
+        sync(torch, dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        sync(torch, dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    meta_params = transformer.init_params(cfg, device="meta")
+    res = []
+    for batch, seq in DRYRUN_PASSES:
+        meta = analysis.count(grad, meta_params,
+                              {k: torch.empty(batch, seq, dtype=torch.int64,
+                                              device="meta")
+                               for k in ("tokens", "labels")})
+        data = mesh_batch(torch, dev, cfg, seq=seq, batch=batch)
+        flops, counted = peak_of(lambda: analysis.count_flops(grad, params,
+                                                              data))
+        _, plain = peak_of(lambda: grad(params, data)[0])
+        r = dict(batch=batch, seq=seq, flops=flops, counted=meta.peak_live,
+                 card_counting=counted, card_plain=plain,
+                 ratio_counting=counted / meta.peak_live,
+                 ratio_plain=plain / meta.peak_live)
+        print(f"dryrun: forward and backward of {batch} x {seq} tokens: "
+              f"counted {meta.peak_live:,} B; the card's peak over its "
+              f"inputs {counted:,} B under FlopCounterMode (ratio "
+              f"{r['ratio_counting']:.6f}), {plain:,} B plain (ratio "
+              f"{r['ratio_plain']:.6f}) ({smi_line})")
+        check(flops == meta.flops, f"dryrun: {batch} x {seq} tokens: "
+              f"{flops:,} FLOPs on the card = the meta count {meta.flops:,}")
+        check(abs(r["ratio_plain"] - 1) <= DRYRUN_MEM_RTOL,
+              f"dryrun: {batch} x {seq} tokens: the card's plain peak "
+              f"within {DRYRUN_MEM_RTOL:.0%} of the counted live bytes")
+        res.append(r)
+        del data
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
+    """The dry-run (``launch/dryrun.py``): the CLI on three combos, then
+    its prediction for the mesh phase's step (qwen3-0.6b at full width,
+    seq 64, global batch 8, 5 x 2**20, k = 25,000) at mesh 1 x 1 against
+    the same step run as a world of 1 on the card: FLOPs counted on the
+    card equal the ``meta`` count, the peak memory of a round within 25%
+    of the prediction, and the 2 x 1 run's recorded collectives equal
+    ``step_collective_bytes``; the forward and backward alone at the
+    step's 8 x 64 tokens and at 4 x 1024, where the activations dominate,
+    against their counted live bytes; seconds per round and the shares of
+    the card's peak rates."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.kernels import count_sketch as cuda_cs
+    from repro_torch.launch import analysis, dryrun, mesh as mesh_lib
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import transformer
+
+    t0 = time.time()
+    check(cuda_cs.bins() == cuda_cs.SOURCE_BINS
+          and cuda_cs.select_geometry() == cuda_cs.SOURCE_SELECT,
+          f"the kernels' geometry is the dry-run's {cuda_cs.SOURCE_BINS}, "
+          f"{cuda_cs.SOURCE_SELECT}")
+    rows = dryrun_cli()
+    cli_s = time.time() - t0
+
+    cfg = configs.get_config(MESH_ARCH)
+    fs = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    shape = shapes.ShapeSpec("mesh", "train", 64, 8)
+    roof, count_s, n_params = dryrun.run_one(
+        MESH_ARCH, "mesh", shape=shape, debug_mesh=(1, 1), fs_cfg=fs)
+    check(not dist.is_initialized(), "the prediction's fake world is closed")
+
+    mesh_lib.init_from_env(dev.type)
+    m11 = mesh_lib.make_debug_mesh(1, 1, dev.type)
+    sync(torch, dev)
+    base = torch.cuda.memory_allocated(dev)
+    bundle = steps.make_train_step(cfg, shape, m11, fs, aggregate="flat")
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    opt = F.init_state(fs, dev)
+    batch = mesh_batch(torch, dev, cfg)
+    lr = torch.full((), MESH_LR, device=dev)
+    flops = analysis.count_flops(bundle.grad_fn, params, batch)
+    check(flops == roof.flops,
+          f"dryrun: FlopCounterMode on the card counts {flops:,} FLOPs of "
+          f"the rank's forward and backward = the meta count "
+          f"{int(roof.flops):,}")
+    params, opt, _ = bundle.fn(params, opt, batch, lr)      # round 0: warm
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    seconds = []
+    for r in range(1, 4):
+        t1 = time.perf_counter()
+        params, opt, m = bundle.fn(params, opt, batch, lr)
+        sync(torch, dev)
+        seconds.append(time.perf_counter() - t1)
+        if r == 1:
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        check(math.isfinite(float(m["loss"])), f"dryrun round {r}: loss "
+              f"{float(m['loss']):.6f} finite")
+    ratio = peak / roof.peak_mem_bytes
+    g = 2 ** 30
+    print(f"dryrun: peak memory of round 1 {peak / g:.4f} GiB, predicted "
+          f"{roof.peak_mem_bytes / g:.4f} GiB ({roof.mem_detail}), ratio "
+          f"{ratio:.4f} ({smi_line})")
+    check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
+          f"dryrun: the card's peak within {DRYRUN_MEM_RTOL:.0%} of the "
+          f"prediction (ratio {ratio:.4f})")
+    del params, opt, m, bundle
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    fwd_bwd = dryrun_activations(torch, dev, cfg, smi_line)
+
+    # the mesh phase's 2 x 1 flat run against the formula, to the byte
+    run = mesh["world_of_2"]["runs"]["flat"]
+    m21 = {"data": 2, "model": 1}
+    one = analysis.step_collective_bytes(
+        cfg, shape, m21, fs, steps.build_layout(cfg, m21), aggregate="flat")
+    want = {k: v * run["rounds"] for k, v in one.items()}
+    check(run["collectives"] == want,
+          f"dryrun: the 2 x 1 flat run's recorded collectives "
+          f"{run['collectives']} = step_collective_bytes x "
+          f"{run['rounds']} rounds {want}")
+
+    s = statistics.median(seconds)
+    model_flops, step_flops = roof.model_flops, roof.step_flops
+    shares = {
+        "step_flops_share_of_bf16_peak": step_flops / (s * 989e12),
+        "mfu_bf16_peak": model_flops / (s * 989e12),
+        "step_flops_share_of_f32_peak": step_flops / (s * F32_OPS_PER_S),
+        "mfu_f32_peak": model_flops / (s * F32_OPS_PER_S)}
+    print(f"dryrun: s/round {seconds} (median {s:.6f}) ({smi_line})")
+    print(f"dryrun: model_flops {model_flops:.6e} step_flops "
+          f"{step_flops:.6e} counted {roof.flops:.6e} ({smi_line})")
+    for k, v in shares.items():
+        print(f"dryrun: {k} {v:.6f} ({smi_line})")
+    return dict(cli=rows, cli_s=cli_s, count_s=count_s, n_params=n_params,
+                predicted=dict(flops=roof.flops, peak=roof.peak_mem_bytes,
+                               mem=roof.mem_detail,
+                               coll=roof.coll_detail, row=roof.row()),
+                card=dict(flops=flops, peak=peak, ratio=ratio,
+                          seconds=seconds),
+                fwd_bwd=fwd_bwd,
+                collectives_2x1=run["collectives"], formula_2x1=want,
+                model_flops=model_flops, step_flops=step_flops, **shares,
+                seconds=time.time() - t0)
+
+
+
 def main() -> int:
     # the serve phase frees and allocates models of 35-54 GiB one after
     # another, and qwen2-moe's FetchSGD run then needs all but a few GiB
@@ -2036,6 +2263,10 @@ def main() -> int:
     mesh = mesh_phase(torch, dev, smi)
     (OUT / "chip_smoke_mesh.json").write_text(json.dumps(
         {"device": smi, **mesh}, indent=1))
+    print("dryrun: the dry-run and its prediction against the card")
+    dry = dryrun_phase(torch, dev, smi, mesh)
+    (OUT / "chip_smoke_dryrun.json").write_text(json.dumps(
+        {"device": smi, **dry}, indent=1))
     mesh_launches = {k: sum(r["launches"][k] for r in
                             mesh["world_of_1"]["runs"].values())
                      for k in counts}

@@ -106,6 +106,12 @@ def bins() -> Bins:
     return Bins(lib.fs_encode_bin_cols(), lib.fs_encode_max_bins())
 
 
+# The geometry as ``csrc/encode.cu`` writes it (kBinCols, kMaxBins), for
+# what sizes the kernels' scratch without a card (the dry-run); the card
+# tests and ``chip_smoke.py`` hold ``bins()`` to it.
+SOURCE_BINS = Bins(1 << 15, 1024)
+
+
 def _check_ids(offset: int, n: int) -> None:
     if offset < 0 or offset + n > 1 << 64:
         raise ValueError(f"ids {offset}..{offset + n} are not 64-bit")
@@ -207,6 +213,12 @@ class Select:
         winners and the ties beside them), at least 2**16, at most n.  A
         tile that finds the list full is written from the scratch."""
         return min(n, max(4 * kk, 1 << 16))
+
+
+# ``csrc/estimate_select.cu``'s kTile, kGroupTiles and SelectState's words
+# (three histograms of 2**12, 2**11 and 2**8 bins and 8 words of state),
+# held to ``select_geometry()`` as ``SOURCE_BINS`` is to ``bins()``.
+SOURCE_SELECT = Select(4096, 256, (1 << 12) + (1 << 11) + (1 << 8) + 8)
 
 
 @functools.cache

@@ -34,6 +34,8 @@ import torch.distributed as dist
 # rates, at the full 700 W power limit)
 CHIP = "NVIDIA H100 SXM 80GB"
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, tensor cores
+PEAK_FLOPS_F32 = 67e12          # FLOP/s, FP32 outside the tensor cores (the
+                                # rate of eager float32 with TF32 off)
 HBM_BW = 3.35e12                # bytes/s
 NVLINK_BW = 450e9               # bytes/s each way to the host's other cards
 
@@ -171,14 +173,17 @@ def make_mesh(sizes: tuple[int, ...], axis_names: tuple[str, ...],
     product of ``sizes``.  Every rank calls this, in the same order: each
     axis's (and the client axes') groups are created collectively.
     ``device``: where the rank's tensors live (default: its card under
-    ``nccl``, else the CPU; ``cuda`` for ranks sharing a card)."""
+    ``nccl``, ``meta`` under the ``fake`` backend of the dry-run, which
+    creates no CUDA context, else the CPU; ``cuda`` for ranks sharing a
+    card)."""
     world = dist.get_world_size()
     if math.prod(sizes) != world:
         raise ValueError(f"mesh {dict(zip(axis_names, sizes))} needs "
                          f"{math.prod(sizes)} ranks, the world has {world}")
     rank = dist.get_rank()
     if device is None:
-        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device = {"nccl": "cuda", "fake": "meta"}.get(dist.get_backend(),
+                                                      "cpu")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

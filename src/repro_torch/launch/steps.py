@@ -30,13 +30,16 @@ chunks the rank owns.
 
 The reference's vectorized cohort step (``make_cohort_fn``) has its
 counterpart in the orchestrator (``fed.orchestrator`` materializes a
-cohort's lazy events chunk by chunk); its input structs (``param_structs``
-and the rest) serve its dry-run, which is not ported.
+cohort's lazy events chunk by chunk).  The input structs
+(:func:`param_structs`, :func:`batch_structs`, :func:`cache_structs`)
+serve the dry-run (``launch/dryrun.py``): a rank's tensors on the
+``meta`` device, with the global shapes beside them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -61,6 +64,8 @@ class StepBundle:
     fn: Callable
     layout: Any = None               # ParamLayout (train steps)
     plan: Any = None                 # ModelLocalPlan (model_local)
+    grad_fn: Callable | None = None  # train: the rank's forward and
+                                     # backward on its local batch
 
 
 # -- placement -------------------------------------------------------------------
@@ -131,10 +136,61 @@ def local_batch(batch: dict, mesh: Mesh) -> dict:
     return out
 
 
-def local_batch_size(global_batch: int, mesh: Mesh) -> int:
+def local_batch_size(global_batch: int, mesh) -> int:
+    """The rows of a global batch a client rank takes (``mesh``: a
+    :class:`Mesh` or an axis -> size dict)."""
     if sharding.batch_spec((global_batch,), mesh)[0] is None:
         return global_batch
-    return global_batch // mesh.n_clients
+    shape = sharding.mesh_shape(mesh)
+    return global_batch // math.prod(
+        shape[a] for a in sharding.batch_axes(shape))
+
+
+# -- input structs ---------------------------------------------------------------
+
+CACHE_DTYPE = torch.bfloat16
+
+
+def batch_structs(cfg: ArchConfig, shape: ShapeSpec,
+                  mesh) -> tuple[dict, dict]:
+    """(the rank's batch, the global shapes): ``tokens`` (B, 1) for a
+    decode, else ``tokens`` (B, S less the patch prefix), ``labels`` for a
+    train step, ``patches`` (B, n_patches, d) for a vision model and
+    ``frames`` (B, enc_seq, d) for an encoder-decoder; the rank's tensors
+    on ``meta`` with B cut by :func:`local_batch_size`, the global shapes
+    as ``name -> (shape, dtype)``."""
+    B, S = shape.global_batch, shape.seq_len
+    glob = {}
+    if shape.kind == "decode":
+        glob["tokens"] = ((B, 1), torch.int64)
+    else:
+        s_text = S - (cfg.n_patches if cfg.frontend == "vision" else 0)
+        glob["tokens"] = ((B, s_text), torch.int64)
+        if shape.kind == "train":
+            glob["labels"] = ((B, s_text), torch.int64)
+        if cfg.frontend == "vision":
+            glob["patches"] = ((B, cfg.n_patches, cfg.d_model),
+                               torch.float32)
+        if cfg.is_encdec:
+            glob["frames"] = ((B, cfg.enc_seq, cfg.d_model), torch.float32)
+    b = local_batch_size(B, mesh)
+    local = {k: torch.empty((b,) + s[1:], dtype=dt, device="meta")
+             for k, (s, dt) in glob.items()}
+    return local, glob
+
+
+def cache_structs(cfg: ArchConfig, shape: ShapeSpec,
+                  mesh) -> tuple[dict, dict]:
+    """(the rank's cache, the global shapes): ``transformer.init_cache``
+    for ``shape.seq_len`` tokens in ``CACHE_DTYPE`` at the rank's batch on
+    ``meta`` (whole on every model rank: the port does not shard a cache),
+    and each leaf's global shape as ``path -> shape``."""
+    b = local_batch_size(shape.global_batch, mesh)
+    local = transformer.init_cache(cfg, b, shape.seq_len, CACHE_DTYPE,
+                                   device="meta")
+    full = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                  CACHE_DTYPE, device="meta")
+    return local, {p: tuple(t.shape) for p, t in layout_lib.flatten(full)}
 
 
 # -- train step ------------------------------------------------------------------
@@ -193,10 +249,12 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     ep_group = mesh.group(("data",)) if has_ep else None
     dev = mesh.device
 
-    def loss_grads(params, batch):
+    def grad_fn(params, local):
         with moe.expert_parallel(ep_group):
-            return transformer.value_and_grad(params, local_batch(batch, mesh),
-                                              cfg)
+            return transformer.value_and_grad(params, local, cfg)
+
+    def loss_grads(params, batch):
+        return grad_fn(params, local_batch(batch, mesh))
 
     def server_apply(params, opt_state, table, lr):
         lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
@@ -229,7 +287,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
             return params, opt_state, {"loss": mean_loss(loss),
                                        "table": table}
 
-        return StepBundle(fn=fn_ml, layout=layout, plan=plan)
+        return StepBundle(fn=fn_ml, layout=layout, plan=plan,
+                          grad_fn=grad_fn)
 
     if aggregate == "async":
         def fn_async(params, opt_state, batch, lr, fresh_w, inject_table,
@@ -255,7 +314,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
             return params, opt_state, {"loss": mean_loss(loss),
                                        "table": fresh}
 
-        return StepBundle(fn=fn_async, layout=layout)
+        return StepBundle(fn=fn_async, layout=layout, grad_fn=grad_fn)
 
     def fn(params, opt_state, batch, lr, *weights):
         loss, grads = loss_grads(params, batch)
@@ -275,7 +334,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
         params, opt_state = server_apply(params, opt_state, table, lr)
         return params, opt_state, {"loss": mean_loss(loss), "table": table}
 
-    return StepBundle(fn=fn, layout=layout)
+    return StepBundle(fn=fn, layout=layout, grad_fn=grad_fn)
 
 
 # -- serve steps -----------------------------------------------------------------

@@ -284,6 +284,14 @@ def test_select_geometry_comes_from_the_library(dev):
     assert geo.state_words % 2 == 0
 
 
+def test_source_geometry_is_the_library_s(dev):
+    """The dry-run sizes the kernels' scratch without a card from
+    ``SOURCE_BINS`` / ``SOURCE_SELECT``: they are what the library
+    compiles."""
+    assert cuda_cs.bins() == cuda_cs.SOURCE_BINS
+    assert cuda_cs.select_geometry() == cuda_cs.SOURCE_SELECT
+
+
 def test_estimate_topk_rejects_what_it_does_not_take(dev):
     table = torch.randn(3, 128, device=dev)
     before = cuda_cs.LAUNCHES["estimate"]
