@@ -70,7 +70,14 @@ In order, it
     single-device ``F.step``; then two ranks sharing the card (gloo over
     CUDA tensors): mesh 2x1 flat, tree and weighted (0.5, 2.5) against the
     single-device step on the (weighted) mean of the batch's halves'
-    gradients, weighted flat = weighted tree, mesh 1x2 model_local (view
+    gradients, weighted flat = weighted tree; mesh 1x2 tensor-parallel
+    over the two ranks (each holds its ``param_spec`` shard and runs the
+    forward and backward split over heads, FFN width and vocab, with
+    ``remat``), gathered and model_local, 3 rounds each: round 0 against
+    the world-of-1 ``F.step`` (Delta's ids equal with a float32
+    residual; the common values within 1e-2 with the bfloat16 one), the
+    resident parameter bytes equal to the shard sum, each rank's peak
+    memory, its recorded collectives and s/round, model_local (view
     permutations, strided chunks) against gathered; seconds per round and
     of one table's all_reduce (``chip_smoke_mesh.json``);
 11. runs the dry-run (``dryrun``): ``python -m repro_torch.launch.dryrun``
@@ -82,9 +89,13 @@ In order, it
     card equal the ``meta`` count, the peak memory of a round lies within
     25% of the predicted per-rank memory, and the mesh phase's 2 x 1 flat
     run's recorded collectives equal ``step_collective_bytes`` to the
-    byte; the forward and backward alone at 8 x 64 and 4 x 1024 tokens
+    byte, and its 1 x 2 tensor-parallel runs' peaks within 25% of the
+    prediction for each rank and their collectives equal to the formula;
+    the forward and backward alone at 8 x 64 and 4 x 1024 tokens
     (under ``FlopCounterMode`` and plain) against the live bytes and FLOPs
-    counted on ``meta``; seconds per round and the
+    counted on ``meta``, and at 4 x 1024 with ``remat`` (the mesh step's
+    pass) below the plain pass and within 25% of its count, its
+    gradients equal to the plain pass's; seconds per round and the
     step's and the model's FLOPs as shares of the bf16 and the float32
     peak (``chip_smoke_dryrun.json``);
 12. prints the kernels line (with each kernel's launches in the mesh
@@ -1540,7 +1551,8 @@ def frontend_fetchsgd_run(torch, dev, arch, cfg, params,
             n = batch["tokens"].shape[0]
             batch.update({k: v.to(dev) for k, v in
                           serve_lm.frontend_inputs(cfg, n, gen).items()})
-            loss, g = transformer.value_and_grad(params, batch, cfg)
+            loss, g = transformer.value_and_grad(params, batch, cfg,
+                                                 remat=False)
             tables.append(F.sketch_grads(g, lay, fs_cfg))
             del g
             round_losses.append(float(loss))
@@ -1596,6 +1608,14 @@ MESH_WEIGHTS = (0.5, 2.5)
 # an id may trade places only with one whose |value| ties the k-th within
 # this, and the common values agree to it
 DELTA_RTOL = 1e-4
+# Delta of a tensor-parallel step against the whole model's, both with a
+# float32 residual: another order of summation, which a sketch bucket whose
+# terms cancel amplifies (ROADMAP.md §3's rule between the packages)
+TP_DELTA_RTOL = 1e-2
+# With the bfloat16 residual that order flips roundings of the residual
+# (2**-8 relative) over 28 layers, and Delta's ids near the k-th move: at
+# most this share of Delta traded, a side
+TP_BF16_TRADED = 0.1
 
 
 def sync(torch, dev) -> None:
@@ -1608,11 +1628,12 @@ def tree_clone(torch, tree):
     return layout_lib.tree_map(lambda t: t.clone(), tree)
 
 
-def delta_gap(torch, after_a, after_b, before) -> dict:
+def delta_gap(torch, after_a, after_b, before, rtol: float = DELTA_RTOL
+              ) -> dict:
     """Compare two parameter updates from the same weights: the changed
     ids as sets and the common values.  Returns the numbers the checks
     read: sizes, the ids in one set only and whether each ties the k-th
-    |value| within ``DELTA_RTOL``, the largest relative gap of a common
+    |value| within ``rtol``, the largest relative gap of a common
     value."""
     from repro_torch.core import layout as layout_lib
     da, db = {}, {}
@@ -1636,16 +1657,17 @@ def delta_gap(torch, after_a, after_b, before) -> dict:
     gap = max((abs(val_a[i] - val_b[i]) / abs(val_b[i]) for i in common),
               default=0.0)
     return dict(n_a=len(ids_a), n_b=len(ids_b), only=len(only),
-                only_tied=all(abs(abs(v) - kth) <= DELTA_RTOL * kth
-                              for v in only), max_rel_gap=gap)
+                only_tied=all(abs(abs(v) - kth) <= rtol * kth
+                              for v in only), max_rel_gap=gap, rtol=rtol)
 
 
 def check_delta(gap: dict, what: str) -> None:
+    rtol = gap.get("rtol", DELTA_RTOL)
     check(gap["n_a"] == gap["n_b"] == K and gap["only_tied"]
-          and gap["max_rel_gap"] <= DELTA_RTOL,
+          and gap["max_rel_gap"] <= rtol,
           f"{what}: Delta has {K} ids on both sides, {gap['only']} traded "
           f"only at ties of the k-th, values within "
-          f"{gap['max_rel_gap']:.2e} (rtol {DELTA_RTOL})")
+          f"{gap['max_rel_gap']:.2e} (rtol {rtol})")
 
 
 def mesh_batch(torch, dev, cfg, seq: int = 64, batch: int = 8) -> dict:
@@ -1852,36 +1874,126 @@ def mesh_rank(rank: int, dev_type: str) -> dict:
             layout_lib.flatten(firsts["weighted-tree"])))
     del firsts, ref
 
-    mesh12 = mesh_lib.make_debug_mesh(1, 2, dev_type)
-    lay12 = steps.build_layout(cfg, mesh12)
-    out["perms_1x2"] = sum(p is not None for p in lay12.leaf_perms)
-    s_m = mesh12.index("model")
-    after = {}
-    for name in ("gathered", "model_local"):
-        bundle = steps.make_train_step(cfg, shape, mesh12, fs,
-                                       sketch_mode=name)
-        params = tree_clone(torch, init)
-        ops.reset_launch_counts()
-        (params, _, m), s = timed(lambda: bundle.fn(
-            params, F.init_state(fs, dev), batch, lr))
-        after[name] = params
-        plan = bundle.plan
-        encodes = len(bundle.layout.local_chunks) if plan is None else sum(
-            c.n_cols == c.row_stride and (c.mode != "replicated" or s_m == 0)
-            for c in plan.chunks)
-        out["runs"]["1x2-" + name] = dict(
-            seconds=[s], losses=[float(m["loss"])],
-            launches=ops.launch_counts(),
-            expected=dict(encode=encodes, estimate=bundle.layout.num_chunks,
-                          momentum_error=1, topk_mask=1),
-            strided_chunks=0 if plan is None else sum(
-                c.n_cols < c.row_stride for c in plan.chunks))
-    out["model_local_vs_gathered"] = delta_gap(
-        torch, after["model_local"], after["gathered"], init)
-    del after, init
+    out["tp"] = tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch,
+                       lr, timed)
+    del init
     if isinstance(out["all_to_all_cuda"], list):
         out["moe_ep"] = moe_ep_check(torch, mesh, dev)
     return out
+
+
+TP_ROUNDS = 3
+
+
+def tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch, lr,
+           timed) -> dict:
+    """Mesh 1 x 2 on this rank: the step tensor-parallel over the two
+    ranks (each holds its ``param_spec`` shard, the forward and backward
+    split over heads, FFN width and vocab, with ``remat``), gathered and
+    model_local, ``TP_ROUNDS`` rounds each.  Records round 0 against the
+    world-of-1 ``F.step`` (the whole model's gradient on the same batch,
+    in the 1 x 2 layout), the rank's resident parameter bytes against the
+    ``param_spec`` shard sum, its peak memory of round 1 over what it
+    held before the step, the recorded collectives and s/round."""
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, mesh as mesh_lib, steps
+    from repro_torch.models import sharding, transformer
+
+    mesh12 = mesh_lib.make_debug_mesh(1, 2, dev_type)
+    lay12 = steps.build_layout(cfg, mesh12)
+    s_m = mesh12.index("model")
+
+    def world_of_1():
+        """Round 0 of the world-of-1 step on the same batch, in the 1 x 2
+        layout's ids."""
+        single = tree_clone(torch, init)
+        _, grads = transformer.value_and_grad(single, batch, cfg)
+        F.step(single, grads, F.init_state(fs, dev), lr, lay12, fs)
+        return single
+
+    # with a float32 residual the two differ only by the order of
+    # summation: Delta's ids are the same
+    transformer.RESIDUAL_DTYPE = torch.float32
+    try:
+        single = world_of_1()
+        bundle = steps.make_train_step(cfg, shape, mesh12, fs)
+        params = tree_clone(torch, steps.local_params(init, cfg, mesh12))
+        params, _, _ = bundle.fn(params, F.init_state(fs, dev), batch, lr)
+        f32_gap = delta_gap(torch, steps.gather_params(params, cfg, mesh12),
+                            single, init, rtol=TP_DELTA_RTOL)
+    finally:
+        transformer.RESIDUAL_DTYPE = torch.bfloat16
+    del single, params, bundle
+    single = world_of_1()
+    structs = steps.param_structs(cfg)
+    spec_bytes = 0
+    for path, t in layout_lib.flatten(structs):
+        n = t.numel() * t.element_size()
+        if "model" in sharding.param_spec(path, tuple(t.shape), cfg,
+                                          mesh12):
+            n //= 2
+        spec_bytes += n
+    out = dict(perms=sum(p is not None for p in lay12.leaf_perms),
+               spec_bytes=spec_bytes, runs={}, f32_vs_single=f32_gap)
+    after, gaps = {}, {}
+    for name in ("gathered", "model_local"):
+        bundle = steps.make_train_step(cfg, shape, mesh12, fs,
+                                       sketch_mode=name)
+        sync(torch, dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        # a copy: an unsplit leaf of local_params is init's own tensor
+        params = tree_clone(torch, steps.local_params(init, cfg, mesh12))
+        resident = sum(t.numel() * t.element_size()
+                       for _, t in layout_lib.flatten(params))
+        opt = F.init_state(fs, dev)
+        ops.reset_launch_counts()
+        seconds, losses, peak, calls = [], [], None, []
+        for r in range(TP_ROUNDS):
+            if r == 1:
+                sync(torch, dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            with analysis.CollectiveRecorder() as rec:
+                (params, opt, m), s = timed(lambda: bundle.fn(
+                    params, opt, batch, lr))
+            calls += rec.calls
+            if r == 1:
+                peak = torch.cuda.max_memory_allocated(dev) - base
+            seconds.append(s)
+            losses.append(float(m["loss"]))
+            if r == 0:     # compared here, kept on the host (not in
+                               # round 1's peak)
+                whole = steps.gather_params(params, cfg, mesh12)
+                gaps[name] = delta_gap(torch, whole, single, init,
+                                       rtol=TP_DELTA_RTOL)
+                after[name] = to_host(whole)
+                del whole
+        plan = bundle.plan
+        encodes = len(bundle.layout.local_chunks) if name == "gathered" \
+            else sum(c.n_cols == c.row_stride
+                     and (c.mode != "replicated" or s_m == 0)
+                     for c in plan.chunks)
+        out["runs"][name] = dict(
+            seconds=seconds, losses=losses, launches=ops.launch_counts(),
+            expected=dict(encode=TP_ROUNDS * encodes,
+                          estimate=TP_ROUNDS * bundle.layout.num_chunks,
+                          momentum_error=TP_ROUNDS, topk_mask=TP_ROUNDS),
+            strided_chunks=sum(c.n_cols < c.row_stride for c in plan.chunks),
+            resident_bytes=resident, peak=peak, base=base,
+            collectives=analysis._coll_dict(calls), rounds=TP_ROUNDS,
+            vs_single=gaps[name])
+        del params, opt, m
+    out["model_local_vs_gathered"] = delta_gap(
+        torch, after["model_local"], after["gathered"], to_host(init))
+    del after, single
+    return out
+
+
+def to_host(tree):
+    from repro_torch.core import layout as layout_lib
+    return layout_lib.tree_map(lambda t: t.cpu(), tree)
 
 
 def moe_ep_check(torch, mesh, dev) -> dict:
@@ -1952,12 +2064,46 @@ def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
     err = r0["weighted_flat_vs_tree"]
     check(err <= 1e-5, f"mesh 2x1 weighted flat = weighted tree within "
           f"{err:.2e} (1e-5)")
-    check(r0["perms_1x2"] > 0 and r0["runs"]["1x2-model_local"][
-        "strided_chunks"] > 0,
-          f"mesh 1x2: {r0['perms_1x2']} permuted views and "
-          f"{r0['runs']['1x2-model_local']['strided_chunks']} strided chunks")
-    check_delta(r0["model_local_vs_gathered"],
-                "mesh 1x2 model_local vs gathered")
+    for rank, r in enumerate(res):
+        tp = r["tp"]
+        f32 = tp["f32_vs_single"]
+        print(f"mesh 1x2 tensor-parallel rank {rank}, float32 residual, "
+              f"round 0 vs the world of 1: {f32['only']} ids traded, the "
+              f"common values within {f32['max_rel_gap']:.3e} ({smi_line})")
+        check_delta(f32, f"mesh 1x2 tensor-parallel rank {rank} round 0 vs "
+                    f"the world-of-1 F.step, both with a float32 residual")
+        for name, run in tp["runs"].items():
+            print(f"mesh 1x2 tensor-parallel {name} rank {rank}: losses "
+                  f"{run['losses']} s/round {run['seconds']} launches "
+                  f"{run['launches']} resident {run['resident_bytes']:,} B "
+                  f"peak {run['peak']:,} B Delta vs the world of 1: "
+                  f"{run['vs_single']['only']} ids traded, the common values "
+                  f"within {run['vs_single']['max_rel_gap']:.3e} "
+                  f"({smi_line})")
+            check(run["launches"] == run["expected"],
+                  f"mesh 1x2 {name} rank {rank}: launched {run['expected']}")
+            check(all(math.isfinite(x) for x in run["losses"]),
+                  f"mesh 1x2 {name} rank {rank}: every loss finite")
+            check(run["resident_bytes"] == tp["spec_bytes"],
+                  f"mesh 1x2 {name} rank {rank}: resident parameters "
+                  f"{run['resident_bytes']:,} B = the param_spec shard sum "
+                  f"{tp['spec_bytes']:,} B")
+            # the bfloat16 residual's roundings flip apart: measured, and
+            # held only to most of Delta being shared
+            gap = run["vs_single"]
+            check(gap["n_a"] == gap["n_b"] == K
+                  and gap["only"] <= TP_BF16_TRADED * 2 * K,
+                  f"mesh 1x2 tensor-parallel {name} rank {rank} round 0 vs "
+                  f"the world-of-1 F.step (bfloat16 residual): {K} ids on "
+                  f"both sides, {gap['only']} traded (at most "
+                  f"{TP_BF16_TRADED:.0%} a side), the common values within "
+                  f"{gap['max_rel_gap']:.2e}")
+        check(tp["perms"] > 0 and tp["runs"]["model_local"][
+            "strided_chunks"] > 0,
+              f"mesh 1x2: {tp['perms']} permuted views and "
+              f"{tp['runs']['model_local']['strided_chunks']} strided chunks")
+        check_delta(tp["model_local_vs_gathered"],
+                    "mesh 1x2 model_local vs gathered")
     ar = r0["all_reduce_table_s"]
     print(f"mesh 2-rank: all_reduce of one {ROWS * COLS * 4 / 1e6:.2f} MB "
           f"table {ar} s; all_to_all on CUDA tensors: "
@@ -1975,8 +2121,7 @@ def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
               "the EP exchange on the card waits for two cards")
     return dict(all_reduce_table_s=ar, all_to_all_cuda=r0["all_to_all_cuda"],
                 moe_ep=[r.get("moe_ep") for r in res], runs=r0["runs"],
-                loss_halves=r0["loss_halves"],
-                model_local_vs_gathered=r0["model_local_vs_gathered"])
+                loss_halves=r0["loss_halves"], tp=[r["tp"] for r in res])
 
 
 def mesh_phase(torch, dev, smi_line: str) -> dict:
@@ -2038,15 +2183,21 @@ DRYRUN_PASSES = ((8, 64), (4, 1024))    # (batch, seq): the step's, and
 
 def dryrun_activations(torch, dev, cfg, smi_line: str) -> list[dict]:
     """The rank's forward and backward alone (qwen3-0.6b) at each of
-    ``DRYRUN_PASSES``: the live bytes the ``meta`` pass counts against the
-    card's peak over its own parameters and batch, once under
-    ``FlopCounterMode`` (whose FLOPs must equal the ``meta`` count) and
-    once plain, as the step runs it."""
+    ``DRYRUN_PASSES``, without ``remat``: the live bytes the ``meta`` pass
+    counts against the card's peak over its own parameters and batch, once
+    under ``FlopCounterMode`` (whose FLOPs must equal the ``meta`` count)
+    and once plain; then at the largest, the rematerialized pass the mesh
+    step runs, against the plain pass's peak and its own count, and its
+    gradients against the plain pass's."""
+    from repro_torch.core import layout as layout_lib
     from repro_torch.launch import analysis
     from repro_torch.models import transformer
 
     def grad(p, b):
-        return transformer.value_and_grad(p, b, cfg)
+        return transformer.value_and_grad(p, b, cfg, remat=False)
+
+    def grad_remat(p, b):
+        return transformer.value_and_grad(p, b, cfg, remat=True)
 
     def peak_of(fn):
         sync(torch, dev)
@@ -2084,9 +2235,80 @@ def dryrun_activations(torch, dev, cfg, smi_line: str) -> list[dict]:
               f"within {DRYRUN_MEM_RTOL:.0%} of the counted live bytes")
         res.append(r)
         del data
-    del params
+    # the rematerialized pass at the largest (the mesh step's grad_fn)
+    batch, seq = DRYRUN_PASSES[-1]
+    meta = analysis.count(grad_remat, meta_params,
+                          {k: torch.empty(batch, seq, dtype=torch.int64,
+                                          device="meta")
+                           for k in ("tokens", "labels")})
+    data = mesh_batch(torch, dev, cfg, seq=seq, batch=batch)
+    (_, g_remat), remat_peak = peak_of(lambda: grad_remat(params, data))
+    _, g_plain = grad(params, data)
+    err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for (_, a), (_, b) in zip(layout_lib.flatten(g_remat),
+                                        layout_lib.flatten(g_plain)))
+    plain = res[-1]["card_plain"]
+    r = dict(batch=batch, seq=seq, remat=True, counted=meta.peak_live,
+             card_plain=remat_peak, ratio_plain=remat_peak / meta.peak_live,
+             plain_peak=plain, grads_max_rel_gap=err)
+    print(f"dryrun: rematerialized forward and backward of {batch} x {seq} "
+          f"tokens: the card's peak {remat_peak:,} B against the plain "
+          f"pass's {plain:,} B and its count {meta.peak_live:,} B (ratio "
+          f"{r['ratio_plain']:.6f}); gradients within {err:.3e} of each "
+          f"leaf's largest ({smi_line})")
+    check(remat_peak < plain, f"dryrun: remat peaks below the plain pass "
+          f"({remat_peak:,} < {plain:,} B)")
+    check(abs(r["ratio_plain"] - 1) <= DRYRUN_MEM_RTOL,
+          f"dryrun: remat's peak within {DRYRUN_MEM_RTOL:.0%} of its count")
+    check(err <= 1e-5, f"dryrun: remat's gradients = the plain pass's "
+          f"within {err:.3e} of each leaf's largest (1e-5)")
+    res.append(r)
+    del data, g_remat, g_plain, params
     torch.cuda.empty_cache()
     return res
+
+
+def dryrun_tp(ranks: list[dict], cfg, fs, shape, smi_line: str) -> dict:
+    """The dry-run's prediction for the mesh phase's 1 x 2 tensor-parallel
+    step (each rank: ``run_one`` as that rank of a fake world of 2)
+    against each rank's peak memory on the card, and
+    ``step_collective_bytes`` against each rank's recorded collectives,
+    to the byte."""
+    from repro_torch.launch import analysis, dryrun, steps
+
+    m12 = {"data": 1, "model": 2}
+    lay = steps.build_layout(cfg, m12)
+    out = {}
+    for name in ("gathered", "model_local"):
+        one = analysis.step_collective_bytes(cfg, shape, m12, fs, lay,
+                                             sketch_mode=name)
+        for rank, r in enumerate(ranks):
+            run = r["runs"][name]
+            roof, _, _ = dryrun.run_one(MESH_ARCH, "mesh", shape=shape,
+                                        debug_mesh=(1, 2), fs_cfg=fs,
+                                        sketch_mode=name, rank=rank,
+                                        verbose=False)
+            ratio = run["peak"] / roof.peak_mem_bytes
+            want = {k: v * run["rounds"] for k, v in one.items()}
+            g = 2 ** 30
+            print(f"dryrun: mesh 1x2 {name} rank {rank}: peak of round 1 "
+                  f"{run['peak'] / g:.4f} GiB, predicted "
+                  f"{roof.peak_mem_bytes / g:.4f} GiB ({roof.mem_detail}), "
+                  f"ratio {ratio:.4f}; collectives {run['collectives']} "
+                  f"({smi_line})")
+            check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
+                  f"dryrun: mesh 1x2 {name} rank {rank}: the card's peak "
+                  f"within {DRYRUN_MEM_RTOL:.0%} of the prediction "
+                  f"(ratio {ratio:.4f})")
+            check(run["collectives"] == want,
+                  f"dryrun: mesh 1x2 {name} rank {rank}: recorded "
+                  f"collectives {run['collectives']} = step_collective_bytes "
+                  f"x {run['rounds']} rounds {want}")
+            out[f"{name}/{rank}"] = dict(
+                peak=run["peak"], predicted=roof.peak_mem_bytes, ratio=ratio,
+                mem=roof.mem_detail, collectives=run["collectives"],
+                formula=want, seconds=run["seconds"])
+    return out
 
 
 def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
@@ -2173,6 +2395,7 @@ def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
           f"dryrun: the 2 x 1 flat run's recorded collectives "
           f"{run['collectives']} = step_collective_bytes x "
           f"{run['rounds']} rounds {want}")
+    tp = dryrun_tp(mesh["world_of_2"]["tp"], cfg, fs, shape, smi_line)
 
     s = statistics.median(seconds)
     model_flops, step_flops = roof.model_flops, roof.step_flops
@@ -2192,7 +2415,7 @@ def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
                                coll=roof.coll_detail, row=roof.row()),
                 card=dict(flops=flops, peak=peak, ratio=ratio,
                           seconds=seconds),
-                fwd_bwd=fwd_bwd,
+                fwd_bwd=fwd_bwd, tp_1x2=tp,
                 collectives_2x1=run["collectives"], formula_2x1=want,
                 model_flops=model_flops, step_flops=step_flops, **shares,
                 seconds=time.time() - t0)

@@ -64,7 +64,7 @@ def init_state(cfg: FetchSGDConfig, device=None) -> FetchSGDState:
 
 def sketch_grads(grads: dict, layout: layout_lib.ParamLayout,
                  cfg: FetchSGDConfig, shard_idx: int | None = None,
-                 local: bool = False) -> torch.Tensor:
+                 local: bool = False, values=None) -> torch.Tensor:
     """Client-side compression: S(g) for a gradient tree.
 
     By linearity each chunk adds an independent partial table; the encode
@@ -72,11 +72,19 @@ def sketch_grads(grads: dict, layout: layout_lib.ParamLayout,
     order (chunks grouped by leaf, rows and offset count).  ``local``: the
     grads are a rank's shard-local tree (EP leaves sliced), and an
     expert-parallel chunk takes the global offset of data shard
-    ``shard_idx`` (a Python int, as every offset here is).
+    ``shard_idx`` (a Python int, as every offset here is).  ``values``:
+    ``lc -> flat values`` of a local chunk in place of the views of
+    ``grads`` (a tensor-parallel rank's chunks gathered over its model
+    group, ``model_local.gathered_values``).
     """
-    views = layout_lib.leaf_views(grads, layout, local=local)
+    if values is None:
+        views = layout_lib.leaf_views(grads, layout, local=local)
+
+        def values(lc):
+            return layout_lib.chunk_values(views, lc)
+    device = layout_lib.flatten(grads)[0][1].device
     table = torch.zeros(cfg.rows, cfg.cols, dtype=torch.float32,
-                        device=views[0].device)
+                        device=device)
     groups: dict[tuple[int, int, int], list] = {}
     for lc in layout.local_chunks:
         groups.setdefault((lc.leaf, lc.n_rows, len(lc.offsets)),
@@ -84,7 +92,7 @@ def sketch_grads(grads: dict, layout: layout_lib.ParamLayout,
     for _, lcs in sorted(groups.items()):
         for lc in lcs:
             si = (shard_idx or 0) if len(lc.offsets) > 1 else 0
-            kernel_ops.sketch_encode(layout_lib.chunk_values(views, lc),
+            kernel_ops.sketch_encode(values(lc),
                                      lc.offsets[si], cfg.rows, cfg.cols,
                                      cfg.hash_key, out=table)
     return table
@@ -145,10 +153,14 @@ def server_step_reference(agg_table: torch.Tensor, state: FetchSGDState, lr,
 
 def apply_delta(params: dict, layout: layout_lib.ParamLayout,
                 delta: topk_lib.SparseDelta, shard_idx: int | None = None,
-                local: bool = False) -> dict:
-    """w <- w - Delta in place (Delta already carries the learning rate)."""
+                local: bool = False, model_plan=None,
+                model_idx: int = 0) -> dict:
+    """w <- w - Delta in place (Delta already carries the learning rate);
+    ``model_plan`` / ``model_idx``: the params are model shard
+    ``model_idx``'s (``topk.apply_delta``)."""
     return topk_lib.apply_delta(params, layout, delta, scale=1.0,
-                                shard_idx=shard_idx, local=local)
+                                shard_idx=shard_idx, local=local,
+                                model_plan=model_plan, model_idx=model_idx)
 
 
 def step(params: dict, grads: dict, state: FetchSGDState, lr,

@@ -152,15 +152,59 @@ def model_slice(grads: dict, layout: layout_lib.ParamLayout,
     return layout_lib.unflatten(layout.leaf_paths, out)
 
 
+def split_of(layout: layout_lib.ParamLayout, plan: ModelLocalPlan,
+             leaf: int) -> str | None:
+    """How the plan splits a leaf's (data-local) 2-D view over the model
+    group: ``cols``, ``rows`` or None (whole on every shard)."""
+    n_rows, row_len = layout_lib._leaf_2d(layout.leaf_local_shapes[leaf])
+    vr, vc = plan.view_dims[leaf]
+    return "cols" if vc != row_len else "rows" if vr != n_rows else None
+
+
+def gathered_values(grads, layout: layout_lib.ParamLayout,
+                    plan: ModelLocalPlan, s_m: int, all_gather, all_sum):
+    """``values(lc)``: the flat values of the layout's local chunk ``lc``
+    of the whole (model-gathered) gradient, from the shard's model-local
+    tree ``grads``, one chunk at a time.  A ``cols`` leaf's rows are
+    gathered over the model group (``all_gather(t)`` -> the shards' ``t``
+    in order); the rows of a ``rows`` leaf that a chunk spans lie on
+    several shards, so each shard places its own in a zero buffer and
+    the group sums it (``all_sum(t)``, in place).  What
+    ``fetchsgd.sketch_grads(values=)`` encodes, chunk by chunk, as the
+    reference's GSPMD gathers each chunk."""
+    views = _local_views(grads, layout, plan)
+
+    def values(lc) -> torch.Tensor:
+        v = views[lc.leaf]
+        rows = slice(lc.row_start, lc.row_start + lc.n_rows)
+        split = split_of(layout, plan, lc.leaf)
+        if split == "cols":
+            return torch.cat(all_gather(v[rows].contiguous()),
+                             dim=1).reshape(-1)
+        if split is None:
+            return v[rows].reshape(-1)
+        vr = plan.view_dims[lc.leaf][0]
+        buf = v.new_zeros(lc.n_rows, v.shape[1])
+        lo = max(lc.row_start, s_m * vr)
+        hi = min(lc.row_start + lc.n_rows, (s_m + 1) * vr)
+        if hi > lo:
+            buf[lo - lc.row_start:hi - lc.row_start] = \
+                v[lo - s_m * vr:hi - s_m * vr]
+        return all_sum(buf).reshape(-1)
+
+    return values
+
+
 def sketch_grads(grads, layout: layout_lib.ParamLayout,
                  plan: ModelLocalPlan, fs_cfg, s_d: int | None,
                  s_m: int) -> torch.Tensor:
     """Partial sketch of this (data, model) shard's gradient slice.
 
     ``grads``: the shard's model-local tree (each leaf the slice that
-    ``param_spec`` places on model shard ``s_m``; :func:`model_slice`).
-    Sum the result over the model group and average it over the client
-    axes to obtain the aggregated S(g^t).
+    ``param_spec`` places on model shard ``s_m``: the tensor-parallel
+    step's own gradient, or :func:`model_slice` of a whole one).  Sum the
+    result over the model group and average it over the client axes to
+    obtain the aggregated S(g^t).
     """
     views = _local_views(grads, layout, plan)
     table = torch.zeros(fs_cfg.rows, fs_cfg.cols, dtype=torch.float32,

@@ -124,9 +124,28 @@ def _storage_index(idx: torch.Tensor, shape: tuple[int, ...], perm,
     return out
 
 
+def _model_local_index(sel, idx, shape, view_dims, s_m: int):
+    """Flat indices of a leaf's (permuted, data-local) 2-D view -> those
+    of model shard ``s_m``'s part of it, which holds ``view_dims``:
+    (entries that fall in the shard, their indices, the shard's permuted
+    shape)."""
+    n_rows, row_len = layout_lib._leaf_2d(shape)
+    vr, vc = view_dims
+    r, c = idx // row_len, idx % row_len
+    if vc != row_len:                      # the shard's columns
+        sel = sel & (c // vc == s_m)
+        return sel, torch.where(sel, r * vc + c % vc, 0), shape[:-1] + (vc,)
+    if vr != n_rows:                       # the shard's rows
+        sel = sel & (r // vr == s_m)
+        return sel, torch.where(sel, (r % vr) * row_len + c, 0), \
+            (vr,) + tuple(shape[1:])
+    return sel, idx, shape
+
+
 def apply_delta(params: dict, layout: layout_lib.ParamLayout,
                 delta: SparseDelta, scale: float = 1.0,
-                shard_idx: int | None = None, local: bool = False) -> dict:
+                shard_idx: int | None = None, local: bool = False,
+                model_plan=None, model_idx: int = 0) -> dict:
     """params <- params - scale * Delta, **in place** (``index_add_`` into
     each leaf's flat storage); returns ``params``.
 
@@ -137,6 +156,10 @@ def apply_delta(params: dict, layout: layout_lib.ParamLayout,
     ``-0.0`` at element 0, which leaves every value unchanged.  A permuted
     leaf is written through the inverse permutation.  ``local``: the
     params are a rank's shard-local tree (EP leaves sliced).
+    ``model_plan`` (a ``model_local.ModelLocalPlan``): the params are
+    model shard ``model_idx``'s, each leaf the plan's model-local view
+    (its columns or rows of the 2-D view); an entry outside the shard's
+    strided part is another shard's and changes nothing here.
     """
     dev = delta.values.device
     leaf_of = torch.tensor([ch.leaf for ch in layout.chunks],
@@ -158,6 +181,9 @@ def apply_delta(params: dict, layout: layout_lib.ParamLayout,
                                                     layout.leaf_perms)):
             sel = mine & (leaf_of == i)
             idx = torch.where(sel, pos, 0)
+            if model_plan is not None:
+                sel, idx, shape = _model_local_index(
+                    sel, idx, shape, model_plan.view_dims[i], model_idx)
             if perm is not None:
                 idx = _storage_index(idx, shape, perm, leaf.stride())
             vals = torch.where(sel, delta.values, 0.0).to(leaf.dtype)

@@ -160,9 +160,9 @@ class FedRunResult:
 def make_grad_fn(cfg) -> Callable:
     """(params, batch) -> (loss, grads) for the transformer LM; the loss
     is the cross entropy plus the MoE routers' aux term, as the
-    reference's."""
-    return lambda params, batch: transformer.value_and_grad(params, batch,
-                                                            cfg)
+    reference's, without ``remat`` as the reference's clients run it."""
+    return lambda params, batch: transformer.value_and_grad(
+        params, batch, cfg, remat=False)
 
 
 # Clients materialized per sweep of the vectorized loops: the lazy events

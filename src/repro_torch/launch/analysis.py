@@ -22,10 +22,18 @@ does instead, on ``meta`` tensors in a world of fake ranks (the dry-run,
   that the function allocates (its inputs not counted);
 * :func:`count` runs all three in one pass, the modes stacked;
 * :class:`CollectiveRecorder` records each collective the step runs
-  (``Mesh.all_sum`` / ``all_mean`` / ``all_gather`` and the EP exchange
-  ``moe._all_to_all``), and :func:`step_collective_bytes` gives the same
+  (``Mesh.all_sum`` / ``all_mean`` / ``all_gather``, the EP exchange
+  ``moe._all_to_all`` and the tensor-parallel ``tp._all_reduce`` /
+  ``tp._all_gather``), and :func:`step_collective_bytes` gives the same
   bytes of a train step from its configuration alone, for a world that
   cannot run: the recorder is the formula's oracle.
+
+The counters run the step as it is: its ``torch.utils.checkpoint``
+regions too.  The non-reentrant checkpoint drops what a region saves
+through saved-tensor hooks and recomputes it in the backward, under the
+modes then active, so the live bytes count the recompute where the
+backward makes it (``tests/test_torch_remat.py`` holds the count to
+``MemTracker``).
 
 No counterpart: the HLO parsing (``_COLL_RE``, ``_SHAPE_RE``,
 ``_shape_bytes``, ``collective_bytes``, ``count_collectives``) and
@@ -45,9 +53,10 @@ from torch.utils.flop_counter import FlopCounterMode
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import layout as layout_lib
+from repro_torch.core import model_local
 from repro_torch.core import topk as topk_lib
 from repro_torch.kernels import count_sketch
-from repro_torch.models import moe, sharding
+from repro_torch.models import moe, sharding, tp, transformer
 
 from . import mesh as mesh_lib
 from . import steps
@@ -71,9 +80,9 @@ class Roofline:
 
     # The compute term uses the analytic ``step_flops`` as the reference's
     # does; the counted ``flops`` (the rank's forward and backward, no
-    # sketch) is kept as a cross-check.  The port replicates the model
-    # over ``model``: its step's work divides over the client ranks that
-    # split the batch, not over the whole mesh (``n_devices``).
+    # sketch) is kept as a cross-check.  ``n_devices`` is every rank the
+    # step's work divides over: the client ranks that split the batch
+    # times, for a train step, the model ranks that split each layer.
     @property
     def t_compute(self) -> float:
         return (self.step_flops / self.n_devices) / mesh_lib.PEAK_FLOPS_BF16
@@ -292,9 +301,11 @@ class CollectiveRecorder:
     """Records each collective the step runs while the context is open:
     ``Mesh.all_sum`` and ``all_mean`` (kind ``all-reduce``, the operand's
     bytes), ``Mesh.all_gather`` (``all-gather``, the gathered result's
-    bytes) and the EP exchange ``moe._all_to_all`` (``all-to-all``, the
-    buffer's bytes).  A collective over one rank runs nothing and is not
-    recorded.  ``calls`` holds ``(kind, axes, bytes)`` in order."""
+    bytes), the EP exchange ``moe._all_to_all`` (``all-to-all``, the
+    buffer's bytes) and the tensor-parallel ``tp._all_reduce`` and
+    ``tp._all_gather`` (axes ``("model",)``).  A collective over one rank
+    runs nothing and is not recorded.  ``calls`` holds ``(kind, axes,
+    bytes)`` in order."""
 
     def __init__(self):
         self.calls: list[tuple[str, tuple, int]] = []
@@ -304,6 +315,16 @@ class CollectiveRecorder:
         rec = self.calls
         all_sum, all_gather = mesh_lib.Mesh.all_sum, mesh_lib.Mesh.all_gather
         a2a = moe._all_to_all
+        tp_reduce, tp_gather = tp._all_reduce, tp._all_gather
+
+        def rec_tp_reduce(t, grp, *op):
+            rec.append(("all-reduce", ("model",), _nbytes(t)))
+            return tp_reduce(t, grp, *op)
+
+        def rec_tp_gather(t, grp, dim):
+            rec.append(("all-gather", ("model",),
+                        _nbytes(t) * dist.get_world_size(grp)))
+            return tp_gather(t, grp, dim)
 
         def rec_sum(mesh, t, axes):
             if mesh.size(axes) > 1:
@@ -321,15 +342,16 @@ class CollectiveRecorder:
                 rec.append(("all-to-all", ("data",), _nbytes(x)))
             return a2a(x, group)
 
-        self._saved = (all_sum, all_gather, a2a)
+        self._saved = (all_sum, all_gather, a2a, tp_reduce, tp_gather)
         mesh_lib.Mesh.all_sum = rec_sum
         mesh_lib.Mesh.all_gather = rec_gather
         moe._all_to_all = rec_a2a
+        tp._all_reduce, tp._all_gather = rec_tp_reduce, rec_tp_gather
         return self
 
     def __exit__(self, *exc):
         (mesh_lib.Mesh.all_sum, mesh_lib.Mesh.all_gather,
-         moe._all_to_all) = self._saved
+         moe._all_to_all, tp._all_reduce, tp._all_gather) = self._saved
         return False
 
     def bytes(self) -> dict:
@@ -356,6 +378,144 @@ def exchange_bytes(cfg, tokens: int, ep: int) -> int:
         * _itemsize(dt)
 
 
+def model_collective_calls(cfg, shape, mesh_shape: dict,
+                           remat: bool = True) -> list:
+    """The collectives of one rank's forward and backward in the train
+    step (``steps.make_train_step``'s ``grad_fn``), as ``(kind, axes,
+    bytes)``: the tensor-parallel ones over ``model`` (``models/tp.py``)
+    and the EP exchange over ``data``.  A checkpointed unit (``remat``)
+    issues its forward collectives twice, in the forward and again in the
+    recompute, but for the sum that ends it: the non-reentrant checkpoint
+    stops its recompute at the last tensor a unit saves, the input of the
+    last FFN's (or shared experts') down-projection; the backward's
+    collectives run once.
+
+    Over ``model`` (M ranks), each split by ``param_spec``'s rule:
+    the vocab-parallel embedding's sum; the frontend projection gathered
+    at use; each checkpointed unit's input gathered from its slice of
+    ``d`` (forward) and its gradient's slices gathered (backward);
+    head-parallel attention: the output projection's sum forward, the
+    input's gradient sum backward (and the encoder output's, for
+    cross-attention), K/V over head_dim gathered at use, replicated K/V
+    and qk-norm scales' gradient sums; attention whose heads do not
+    divide M: each split leaf gathered at use; the MLP and the shared
+    experts: one sum each way; MoE experts split over their width: the
+    experts' outputs summed forward, the tokens' gradient backward; mamba
+    and mLSTM leaves gathered at use; each loss chunk's max, sum of
+    exponentials and gold logit forward and its input's gradient
+    backward.
+    """
+    shape_of = dict(mesh_shape)
+    M = shape_of.get("model", 1)
+    b = steps.local_batch_size(shape.global_batch, shape_of)
+    S = shape.seq_len
+    P = cfg.n_patches if cfg.frontend == "vision" else 0
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pdt = getattr(torch, cfg.param_dtype)
+    pb = _itemsize(pdt)
+    ab = _itemsize(torch.promote_types(transformer.RESIDUAL_DTYPE, pdt))
+    rb = _itemsize(transformer.RESIDUAL_DTYPE)
+    fwd = 2 if remat else 1
+    calls: list = []
+
+    def div(n):
+        return M > 1 and n % M == 0
+
+    def ar(n, times=1):
+        calls.extend([("all-reduce", ("model",), n)] * times)
+
+    def ag(n, times=1):
+        calls.extend([("all-gather", ("model",), n)] * times)
+
+    def attn(n_tok, a, times, qk_norm, kv=None):
+        kv_split = "kv" if div(KV) else None if cfg.qk_norm else \
+            "hd" if div(hd) else None
+        if div(H):                                  # head-parallel
+            ar(n_tok * d * a, times)
+            if kv_split == "hd":
+                ag(d * KV * hd * pb, 2 * times)
+            ar(n_tok * d * a)
+            if kv is not None:
+                ar(kv[0] * d * kv[1])
+            if kv_split != "kv":
+                ar(d * KV * hd * pb, 2)
+            if qk_norm:
+                ar(hd * pb, 2)
+        elif div(hd):                               # whole, gathered
+            ag(d * H * hd * pb, times)
+            if kv_split == "hd":
+                ag(d * KV * hd * pb, 2 * times)
+            ag(H * hd * d * pb, times)
+
+    def mlp(n_tok, a, width, times):
+        if div(width):
+            ar(n_tok * d * a, times)
+            ar(n_tok * d * a)
+
+    ep = shape_of.get("data", 1) if cfg.shard_experts_data and \
+        cfg.n_experts and cfg.n_experts % shape_of.get("data", 1) == 0 \
+        and shape_of.get("data", 1) > 1 else 1
+
+    def moe_ffn(n_tok, times, shared_times):
+        ffe = cfg.moe_d_ff or cfg.d_ff
+        if div(ffe):
+            ar(cfg.n_experts * moe.capacity(cfg, n_tok) * d * ab, times)
+            ar(n_tok * d * ab)
+        if cfg.n_shared_experts:
+            mlp(n_tok, ab, cfg.n_shared_experts * ffe, shared_times)
+        if ep > 1:
+            calls.extend([("all-to-all", ("data",),
+                           exchange_bytes(cfg, n_tok, ep))] * (2 * times + 2))
+
+    if M > 1:
+        if div(cfg.vocab):                            # the embedding
+            ar(b * (S - P) * d * pb)
+        if cfg.frontend in ("audio", "vision") and div(d):
+            ag(d * d * pb)
+    if cfg.is_encdec:
+        eb = _itemsize(torch.promote_types(torch.float32, pdt))
+        for _ in range(cfg.enc_layers):
+            attn(b * cfg.enc_seq, eb, 1, False)
+            mlp(b * cfg.enc_seq, eb, cfg.d_ff, 1)
+    di = cfg.d_inner
+    for _ in range(cfg.n_units):
+        if remat and div(d):
+            ag(b * S * d * rb, fwd + 1)
+        for i, spec in enumerate(cfg.unit_pattern):
+            # the recompute stops before the unit's last sum
+            last = 1 if i == len(cfg.unit_pattern) - 1 else fwd
+            if spec.kind == "attn":
+                attn(b * S, ab, fwd, cfg.qk_norm)
+                if cfg.is_encdec:
+                    attn(b * S, ab, fwd, False,
+                         kv=(b * cfg.enc_seq, eb))
+            elif spec.kind == "mamba" and div(di):
+                dr, ds = cfg.dt_rank, cfg.ssm_d_state
+                for k in (d * 2 * di, cfg.ssm_conv * di, di, dr * di, di,
+                          di, di * (dr + 2 * ds), di * ds, di * d):
+                    ag(k * pb, fwd)
+            elif spec.kind == "mlstm":
+                mi = int(d * cfg.xlstm_proj_factor)
+                if div(2 * mi):
+                    ag(d * 2 * mi * pb, fwd)
+                if div(mi):
+                    ag(mi * mi * pb, 3 * fwd)
+                    ag(mi * d * pb, fwd)
+                    ag(mi * 2 * H * 4, fwd)
+            if spec.ffn:
+                if spec.moe:
+                    moe_ffn(b * S, fwd, last)
+                else:
+                    mlp(b * S, ab, cfg.d_ff, last)
+    if div(cfg.vocab):                                # the loss chunks
+        xb = _itemsize(torch.promote_types(transformer.RESIDUAL_DTYPE, pdt))
+        for s0 in range(0, S - P, cfg.loss_chunk):
+            c = min(cfg.loss_chunk, S - P - s0)
+            ar(b * c * 4, 3 * fwd)
+            ar(b * c * d * xb)
+    return calls
+
+
 def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
                           aggregate: str = "sketch",
                           sketch_mode: str = "gathered",
@@ -364,6 +524,10 @@ def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
     ``"total"``, from the configuration alone (what
     :class:`CollectiveRecorder` records of ``steps.make_train_step``):
 
+    * the forward and backward's (:func:`model_collective_calls`): the
+      tensor-parallel ones over ``model`` and the EP exchange, each MoE
+      layer's dispatch and return ``all_to_all`` in the forward, the
+      recompute and the backward;
     * the loss: one mean over the client axes;
     * ``sketch`` / ``flat`` / ``async``: one mean of the r x c table over
       the client axes; ``tree``: one per client axis; ``weighted`` adds a
@@ -371,39 +535,44 @@ def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
     * ``dense``: every leaf's gradient (the rank's local leaf), the EP
       leaves over the client axes other than ``data``; the table is the
       sketch of the mean and is not reduced;
+    * gathered sketches on a model axis of more than one rank: each local
+      chunk of a tensor-parallel leaf gathered over ``model`` (its
+      column-split rows) or summed over it (row-split rows);
     * ``model_local`` (with ``sketch``): the sum of the table over
-      ``model`` first;
-    * EP: each MoE layer's dispatch and return ``all_to_all``, in the
-      forward and again in the backward.
+      ``model`` first.
 
     ``mesh_shape``: axis -> size; ``params``: the full tree on ``meta``
     (``steps.param_structs(cfg)``; built when needed and not given).
     """
     shape_of = dict(mesh_shape)
     client = tuple(a for a in ("pod", "data") if a in shape_of)
+    M = shape_of.get("model", 1)
 
     def size(axes):
         return math.prod(shape_of[a] for a in axes)
 
     agg = "sketch" if aggregate == "flat" else aggregate
     table = fs_cfg.rows * fs_cfg.cols * 4
-    calls = []
+    calls = model_collective_calls(cfg, shape, shape_of)
     if size(client) > 1:
         calls.append(("all-reduce", client, 4))                 # the loss
+    if params is None and (agg == "dense" or M > 1):
+        params = steps.param_structs(cfg)
     if agg == "dense":
-        if params is None:
-            params = steps.param_structs(cfg)
         ds_axes = sharding.data_shard_axes(params, cfg, shape_of)
+        ms_axes = sharding.model_shard_axes(params, cfg, shape_of)
         n_data = shape_of.get("data", 1)
         for path, leaf in layout_lib.flatten(params):
             red = client if path not in ds_axes else tuple(
                 a for a in client if a != "data")
             if size(red) > 1:
-                n = _nbytes(leaf) // (n_data if path in ds_axes else 1)
+                n = _nbytes(leaf) // (n_data if path in ds_axes else 1) \
+                    // (M if path in ms_axes else 1)
                 calls.append(("all-reduce", red, n))
-    else:
-        if agg == "sketch" and sketch_mode == "model_local" \
-                and shape_of.get("model", 1) > 1:
+    if M > 1 and not (agg == "sketch" and sketch_mode == "model_local"):
+        calls += _gather_calls(cfg, shape_of, layout, params)
+    if agg != "dense":
+        if agg == "sketch" and sketch_mode == "model_local" and M > 1:
             calls.append(("all-reduce", ("model",), table))
         merges = [client] if agg in ("sketch", "async") else \
             [(a,) for a in reversed(client)]
@@ -412,12 +581,22 @@ def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
                 calls.append(("all-reduce", axes, table))
                 if weighted:
                     calls.append(("all-reduce", axes, 4))
-    if layout is not None and layout.has_ep:
-        b = steps.local_batch_size(shape.global_batch, shape_of)
-        one = exchange_bytes(cfg, b * shape.seq_len, shape_of["data"])
-        n_moe = sum(s.moe for s in cfg.unit_pattern) * cfg.n_units
-        calls += [("all-to-all", ("data",), one)] * (4 * n_moe)
     return _coll_dict(calls)
+
+
+def _gather_calls(cfg, shape_of: dict, layout, params) -> list:
+    """The gathered sketch's collectives over ``model``: one a local
+    chunk of a tensor-parallel leaf (``model_local.gathered_values``)."""
+    _, modes, _ = sharding.layout_view_plan(params, cfg, shape_of)
+    plan = model_local.build_plan(layout, modes, tp=shape_of["model"])
+    sizes = [t.element_size() for _, t in layout_lib.flatten(params)]
+    calls = []
+    for lc in layout.local_chunks:
+        split = model_local.split_of(layout, plan, lc.leaf)
+        if split is not None:
+            calls.append(("all-gather" if split == "cols" else "all-reduce",
+                          ("model",), lc.size * sizes[lc.leaf]))
+    return calls
 
 
 # -- the step's memory and bytes beyond the forward and backward ------------------
@@ -448,16 +627,26 @@ def kernel_scratch_bytes(fs_cfg, layout) -> int:
     return max(enc, est + 2 * pool)
 
 
-def view_copy_bytes(layout, grads_itemsize: dict) -> int:
-    """Bytes of the permuted copies ``layout.leaf_views`` makes of the
-    rank's gradient leaves for the sketch (an unpermuted leaf is a view)."""
-    total = 0
-    for path, shape, perm in zip(layout.leaf_paths,
-                                 layout.leaf_local_shapes or
-                                 layout.leaf_shapes, layout.leaf_perms):
-        if perm is not None:
-            total += math.prod(shape) * grads_itemsize[path]
-    return total
+def view_copy_bytes(layout, grads: dict) -> int:
+    """Bytes of the permuted copies the sketch makes of the rank's
+    gradient leaves (``grads``, its local tree: model shards, EP slices)
+    when it views them in 2-D (an unpermuted leaf is a view)."""
+    return sum(_nbytes(g) for (_, g), perm in zip(layout_lib.flatten(grads),
+                                                   layout.leaf_perms)
+               if perm is not None)
+
+
+def gather_scratch_bytes(layout, plan, grads: dict) -> int:
+    """The gathered sketch's buffers at its largest chunk of a
+    tensor-parallel leaf (``model_local.gathered_values``): the gathered
+    pieces and their join, or the zero-padded rows and their sum; 0 with
+    no model split."""
+    if plan is None or plan.tp == 1:
+        return 0
+    sizes = [g.element_size() for _, g in layout_lib.flatten(grads)]
+    return max((2 * lc.size * sizes[lc.leaf] for lc in layout.local_chunks
+                if model_local.split_of(layout, plan, lc.leaf) is not None),
+               default=0)
 
 
 def fetchsgd_bytes_estimate(fs_cfg, layout, grad_bytes: int) -> int:

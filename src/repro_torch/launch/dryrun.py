@@ -12,6 +12,11 @@ step's ``grad_fn`` on its local batch) or its ``prefill`` /
 counters (``launch/analysis.py``).  Nothing is allocated and no card is
 needed: that is the point of it, not a fallback.
 
+A train step runs as the mesh step does: its parameters split over
+``model`` as ``param_spec`` places them, its forward and backward
+tensor-parallel and rematerialized, so the per-rank columns are those of
+that step.  The serving shapes keep the whole model on each model rank.
+
 For each combination this prints the rank's memory (parameters, gradients,
 the sketch's state, tables and kernel scratch, the activations' counted
 peak), its FLOPs and bytes, the collective bytes and the three roofline
@@ -19,8 +24,10 @@ terms against the H100's constants.  The sketch and the server step are
 not run: the kernels have no ``meta`` path (``kernels/ops.py`` raises for a
 ``meta`` tensor), so their FLOPs, bytes and scratch are analytic.  The
 collectives of a train step come from ``analysis.step_collective_bytes``;
-the EP exchange inside the forward and backward is also recorded and must
-agree with it.  The serving shapes' collectives are recorded.
+those of the forward and backward (tensor-parallel and EP) are also
+recorded and must equal its part of them
+(``analysis.model_collective_calls``).  The serving shapes' collectives
+are recorded.
 
 ``xla_env`` has no counterpart: the fake world replaces
 ``force_host_devices(512)``, and no process is forked.
@@ -130,7 +137,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                                                      device="meta")
             full = steps.param_structs(cfg)
             n_params = transformer.param_count(full)
-            params = steps.local_params(full, cfg, mesh)
+            params = steps.local_params(full, cfg, mesh,
+                                        split_model=is_train)
             batch, batch_glob = steps.batch_structs(cfg, shape, mesh)
             cache = None
             if is_train:
@@ -153,22 +161,24 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                 counts = analysis.count(fn, *args)
         with tele.span("dryrun.count_memory", arch=arch, shape=shape_name):
             mem = _memory(counts, params, batch, cache, bundle, fs_cfg,
-                          is_train)
+                          is_train, gathered=sketch_mode == "gathered")
             if is_train:
                 coll = analysis.step_collective_bytes(
                     cfg, shape, mesh.shape, fs_cfg, bundle.layout,
                     aggregate=aggregate, sketch_mode=sketch_mode,
                     params=full)
-                recorded = rec.bytes().get("all-to-all", 0)
-                if recorded != coll.get("all-to-all", 0):
+                want = analysis._coll_dict(analysis.model_collective_calls(
+                    cfg, shape, mesh.shape))
+                if rec.bytes() != want:
                     raise RuntimeError(
-                        f"the EP exchange moved {recorded} bytes; "
-                        f"step_collective_bytes says "
-                        f"{coll.get('all-to-all', 0)}")
+                        f"the forward and backward moved {rec.bytes()}; "
+                        f"model_collective_calls says {want}")
             else:
                 coll = rec.bytes()
             n_split = shape.global_batch // steps.local_batch_size(
                 shape.global_batch, mesh)
+            if is_train:                    # the layers split over model
+                n_split *= mesh.shape.get("model", 1)
         dt = time.time() - t0
 
     n_active = analysis.active_params(cfg, n_params)
@@ -216,14 +226,15 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def _memory(counts, params, batch, cache, bundle, fs_cfg,
-            is_train: bool) -> dict:
+            is_train: bool, gathered: bool = True) -> dict:
     """The rank's memory, in bytes, by part and its peak.
 
     The forward and backward's counted peak (``counts.peak_live``, the
     gradients made by then included) comes first; then a train step holds
     every gradient while it sketches: its permuted leaves' copies, its
-    table and the merged one, and the kernels' scratch at its largest
-    chunk.  The FetchSGD state (``su``, ``se``) and the inputs (parameters,
+    table and the merged one, the gathered sketch's buffers at its largest
+    chunk of a tensor-parallel leaf, and the kernels' scratch at its
+    largest chunk.  The FetchSGD state (``su``, ``se``) and the inputs (parameters,
     batch, cache) are held throughout:
 
         peak = params + inputs + state
@@ -239,8 +250,9 @@ def _memory(counts, params, batch, cache, bundle, fs_cfg,
     g = _nbytes(grads)
     table = fs_cfg.rows * fs_cfg.cols * 4
     state = 2 * table
-    sizes = {path: t.element_size() for path, t in layout_lib.flatten(grads)}
-    after = (2 * table + analysis.view_copy_bytes(bundle.layout, sizes)
+    after = (2 * table + analysis.view_copy_bytes(bundle.layout, grads)
+             + (analysis.gather_scratch_bytes(bundle.layout, bundle.plan,
+                                              grads) if gathered else 0)
              + analysis.kernel_scratch_bytes(fs_cfg, bundle.layout))
     return dict(params=p, grads=g, sketch=state + after, inputs=inputs,
                 activations=counts.peak_live - counts.held_at_peak(grads),

@@ -59,7 +59,7 @@ def run_round(r, state, ctx, times):
     for c in federated.sample_clients(dataset.n_clients, 4, r):
         batch = federated.to_batch(dataset.client_batch(int(c)), device)
         _, g = timed("grad", lambda: transformer.value_and_grad(
-            params, batch, cfg))
+            params, batch, cfg, remat=False))
         tables.append(timed("sketch", lambda: F.sketch_grads(g, lay,
                                                              fs_cfg)))
         del g

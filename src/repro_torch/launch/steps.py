@@ -13,20 +13,34 @@ after which every rank runs the same ``server_step`` and ``apply_delta``
 (the dense-gradient mean it replaces is the ``aggregate='dense'``
 baseline).
 
-The ``model`` axis is GSPMD's in the reference: it places tensors and
-changes no number.  Here a model group holds replicated parameters and
-computes the same gradient; what the model axis does change in the
-numbers is kept exactly — the view permutations of
-``sharding.layout_view_plan``, which redefine the global ids, and the
-model-local sketch (``sketch_mode='model_local'``), where each model rank
-sketches the slice ``param_spec`` gives it and the tables are summed over
-the model group.
+The ``model`` axis is GSPMD's in the reference; here it is written out.
+A rank stores the ``model`` slice of every leaf ``param_spec`` splits
+over it (:func:`local_params`) and runs its forward and backward
+tensor-parallel over the model group (``models/tp.py``) with ``remat``
+(checkpointed units, attention blocks and loss chunks, the units' saved
+input split over ``d``), as the reference's step does.  Replicated
+leaves that a parallel region uses on each rank's part of the work
+(qk-norm scales, K/V kept whole under qk-norm) get their gradients
+summed over the group where they are used (``tp.copy_to``).  The sketch
+then sees the reference's numbers:
+
+* ``sketch_mode='gathered'``: each tensor-parallel leaf's gradient is
+  gathered over the model group chunk by chunk before the encode kernel
+  (``model_local.gathered_values``), so the table is the one of the
+  whole gradient, as GSPMD gathers it;
+* ``sketch_mode='model_local'``: each model rank sketches its own shard
+  (the ids of ``sharding.layout_view_plan``'s view permutations) and the
+  tables are summed over the model group;
+
+and the sparse update is applied by each model rank to the ids that fall
+in its shard (``topk.apply_delta(model_plan=)``).
 
 Expert-parallel archs (``cfg.shard_experts_data``) hold only their expert
 slice on each data rank (:func:`local_params`); routing goes through
 ``all_to_all`` (``moe.moe_apply_ep``), expert slices are sketched at their
 data shard's global offsets, and the sparse update is applied only to the
-chunks the rank owns.
+chunks the rank owns.  The serve steps keep the whole model on every
+model rank (``local_params(split_model=False)``).
 
 The reference's vectorized cohort step (``make_cohort_fn``) has its
 counterpart in the orchestrator (``fed.orchestrator`` materializes a
@@ -48,7 +62,7 @@ from repro_torch.core import fetchsgd as F
 from repro_torch.core import layout as layout_lib
 from repro_torch.core import model_local
 from repro_torch.fed import aggregator as fed_agg
-from repro_torch.models import moe, sharding, transformer
+from repro_torch.models import moe, sharding, tp, transformer
 from repro_torch.models.config import ArchConfig
 
 from .mesh import Mesh
@@ -63,7 +77,8 @@ class StepBundle:
 
     fn: Callable
     layout: Any = None               # ParamLayout (train steps)
-    plan: Any = None                 # ModelLocalPlan (model_local)
+    plan: Any = None                 # ModelLocalPlan (model_local, or a
+                                     # model axis of more than one rank)
     grad_fn: Callable | None = None  # train: the rank's forward and
                                      # backward on its local batch
 
@@ -92,35 +107,73 @@ def build_layout(cfg: ArchConfig, mesh) -> layout_lib.ParamLayout:
                                    view_perms=perms, ep=ep)
 
 
-def local_params(full: dict, cfg: ArchConfig, mesh, data_index=None) -> dict:
-    """A rank's tree from the full one: each expert-parallel leaf cut to
-    data shard ``data_index``'s slice (a copy), every other leaf whole
-    (the same tensor).  What GSPMD places in the reference."""
+def _shard_axes(cfg: ArchConfig, mesh, split_model: bool = True):
+    """(leaf path -> data-sharded dim, leaf path -> model-sharded dim)."""
     _, ds_axes = ep_info(cfg, mesh)
+    ms_axes = sharding.model_shard_axes(param_structs(cfg), cfg, mesh) \
+        if split_model else {}
+    return ds_axes, ms_axes
+
+
+def local_params(full: dict, cfg: ArchConfig, mesh, data_index=None,
+                 model_index=None, split_model: bool = True) -> dict:
+    """A rank's tree from the full one: each expert-parallel leaf cut to
+    data shard ``data_index``'s slice and each tensor-parallel leaf to
+    model shard ``model_index``'s (copies; ``split_model=False`` keeps
+    the model dims whole, as the serve steps take them), every other
+    leaf whole: the full tree's own tensor, which an in-place update of
+    the rank's tree (``apply_delta``) changes too.  What GSPMD places in
+    the reference."""
+    ds_axes, ms_axes = _shard_axes(cfg, mesh, split_model)
+    shape = sharding.mesh_shape(mesh)
     d = mesh.index("data") if data_index is None else data_index
-    n = mesh.shape.get("data", 1)
+    m = mesh.index("model") if model_index is None else model_index
     out = []
     for path, leaf in layout_lib.flatten(full):
-        ax = ds_axes.get(path)
-        if ax is not None:
-            size = leaf.shape[ax] // n
-            leaf = leaf.narrow(ax, d * size, size).contiguous()
+        for ax, i, n in ((ds_axes.get(path), d, shape.get("data", 1)),
+                         (ms_axes.get(path), m, shape.get("model", 1))):
+            if ax is not None:
+                size = leaf.shape[ax] // n
+                leaf = leaf.narrow(ax, i * size, size).clone(
+                    memory_format=torch.contiguous_format)
         out.append(leaf)
     return layout_lib.unflatten([p for p, _ in layout_lib.flatten(full)],
                                 out)
 
 
 def assemble_params(parts: list[dict], cfg: ArchConfig, mesh) -> dict:
-    """The full tree from the local trees of data shards 0, 1, ...: the
-    inverse of :func:`local_params`."""
-    _, ds_axes = ep_info(cfg, mesh)
+    """The full tree from the local trees of the (data, model) shards in
+    row-major order (data shard ``i // M``, model shard ``i % M`` for a
+    model axis of M ranks): the inverse of :func:`local_params`."""
+    ds_axes, ms_axes = _shard_axes(cfg, mesh)
+    n_model = sharding.mesh_shape(mesh).get("model", 1)
     paths = [p for p, _ in layout_lib.flatten(parts[0])]
+    flat = [[t for _, t in layout_lib.flatten(tree)] for tree in parts]
     leaves = []
     for i, path in enumerate(paths):
-        pieces = [layout_lib.flatten(t)[i][1] for t in parts]
+        rows = [[flat[j + k][i] for k in range(n_model)]
+                for j in range(0, len(parts), n_model)]
+        ax = ms_axes.get(path)
+        per_data = [r[0] if ax is None else torch.cat(r, ax) for r in rows]
         ax = ds_axes.get(path)
-        leaves.append(pieces[0] if ax is None else torch.cat(pieces, ax))
+        leaves.append(per_data[0] if ax is None else torch.cat(per_data, ax))
     return layout_lib.unflatten(paths, leaves)
+
+
+def gather_params(local: dict, cfg: ArchConfig, mesh: Mesh) -> dict:
+    """The full tree on every rank from the ranks' local trees: each
+    tensor-parallel leaf gathered over ``model`` and each
+    expert-parallel leaf over ``data`` (collectives; for checks)."""
+    ds_axes, ms_axes = _shard_axes(cfg, mesh)
+    out = []
+    for path, leaf in layout_lib.flatten(local):
+        for axes, ax in ((("model",), ms_axes.get(path)),
+                         (("data",), ds_axes.get(path))):
+            if ax is not None:
+                leaf = torch.cat(mesh.all_gather(leaf, axes), ax)
+        out.append(leaf)
+    return layout_lib.unflatten([p for p, _ in layout_lib.flatten(local)],
+                                out)
 
 
 def local_batch(batch: dict, mesh: Mesh) -> dict:
@@ -247,11 +300,18 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     layout = build_layout(cfg, mesh)
     sidx = mesh.index("data") if has_ep else None
     ep_group = mesh.group(("data",)) if has_ep else None
+    n_model, s_m = mesh.shape.get("model", 1), mesh.index("model")
+    tp_group = mesh.group(("model",)) if n_model > 1 else None
+    plan = None
+    if n_model > 1 or sketch_mode == "model_local":
+        _, modes, _ = sharding.layout_view_plan(param_structs(cfg), cfg, mesh)
+        plan = model_local.build_plan(layout, modes, tp=n_model)
+    split = plan if n_model > 1 else None    # params / grads are shards
     dev = mesh.device
 
     def grad_fn(params, local):
-        with moe.expert_parallel(ep_group):
-            return transformer.value_and_grad(params, local, cfg)
+        with moe.expert_parallel(ep_group), tp.model_parallel(tp_group):
+            return transformer.value_and_grad(params, local, cfg, remat=True)
 
     def loss_grads(params, batch):
         return grad_fn(params, local_batch(batch, mesh))
@@ -259,28 +319,27 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     def server_apply(params, opt_state, table, lr):
         lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
         delta, new_state = F.server_step(table, opt_state, lr, layout, fs_cfg)
-        F.apply_delta(params, layout, delta, shard_idx=sidx, local=has_ep)
+        F.apply_delta(params, layout, delta, shard_idx=sidx, local=has_ep,
+                      model_plan=split, model_idx=s_m)
         return params, new_state
 
     def sketch(grads):
+        values = None if split is None else model_local.gathered_values(
+            grads, layout, plan, s_m,
+            lambda t: mesh.all_gather(t, ("model",)),
+            lambda t: mesh.all_sum(t, ("model",)))
         return F.sketch_grads(grads, layout, fs_cfg, shard_idx=sidx,
-                              local=has_ep)
+                              local=has_ep, values=values)
 
     def mean_loss(loss):
         return mesh.all_mean(loss.to(torch.float32).clone(), axes)
 
     if aggregate == "sketch" and sketch_mode == "model_local":
-        tp = mesh.shape.get("model", 1)
-        _, modes, _ = sharding.layout_view_plan(param_structs(cfg), cfg, mesh)
-        plan = model_local.build_plan(layout, modes, tp=tp)
-        s_m = mesh.index("model")
-
         def fn_ml(params, opt_state, batch, lr):
             loss, grads = loss_grads(params, batch)
-            views = model_local.model_slice(grads, layout, plan, s_m)
-            del grads
-            table = model_local.sketch_grads(views, layout, plan, fs_cfg,
+            table = model_local.sketch_grads(grads, layout, plan, fs_cfg,
                                              sidx, s_m)
+            del grads
             mesh.all_sum(table, ("model",))
             table = fed_agg.mesh_aggregate(table, mesh, axes, policy="flat")
             params, opt_state = server_apply(params, opt_state, table, lr)
@@ -314,7 +373,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
             return params, opt_state, {"loss": mean_loss(loss),
                                        "table": fresh}
 
-        return StepBundle(fn=fn_async, layout=layout, grad_fn=grad_fn)
+        return StepBundle(fn=fn_async, layout=layout, plan=plan,
+                          grad_fn=grad_fn)
 
     def fn(params, opt_state, batch, lr, *weights):
         loss, grads = loss_grads(params, batch)
@@ -334,7 +394,7 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
         params, opt_state = server_apply(params, opt_state, table, lr)
         return params, opt_state, {"loss": mean_loss(loss), "table": table}
 
-    return StepBundle(fn=fn, layout=layout, grad_fn=grad_fn)
+    return StepBundle(fn=fn, layout=layout, plan=plan, grad_fn=grad_fn)
 
 
 # -- serve steps -----------------------------------------------------------------

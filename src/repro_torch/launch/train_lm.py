@@ -65,7 +65,8 @@ def train(cfg, fs_cfg: F.FetchSGDConfig, params: dict, dataset, *,
         tables, loss_sum = [], 0.0
         for c in clients:
             batch = federated.to_batch(dataset.client_batch(int(c)), device)
-            loss, g = transformer.value_and_grad(params, batch, cfg)
+            loss, g = transformer.value_and_grad(params, batch, cfg,
+                                                 remat=False)
             tables.append(F.sketch_grads(g, lay, fs_cfg))
             del g
             loss_sum += float(loss)

@@ -19,6 +19,15 @@ in training).
 
 Shared experts (qwen2-moe) are a dense swiglu MLP of width
 ``n_shared * moe_d_ff`` over every token, added to the routed output.
+
+Under ``tp.model_parallel`` the experts' FFN width is split over the
+model group when ``param_spec`` splits it: every rank routes the same
+tokens with the replicated router, its experts compute their slice of
+the width, and the experts' outputs are summed over the group before the
+combine (so the gates' gradients are whole); the tokens enter the
+experts through ``tp.copy_to``.  With expert parallelism the exchange
+runs over the data ranks of the same model index.  The shared experts
+follow the dense MLP's rule.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, tp
 from .config import ArchConfig
 
 
@@ -111,8 +120,20 @@ def _combine(out_e: torch.Tensor, slot, gate, probs, eidx, p: dict,
     frac = F.one_hot(eidx, E).to(torch.float32).mean(dim=(0, 1))
     aux = E * torch.sum(frac * probs.mean(dim=0)) * cfg.router_aux_coef
     if "shared" in p:
-        y = y + layers.mlp(p["shared"], xt, "swiglu")
+        y = y + layers.mlp(p["shared"], xt, "swiglu",
+                           d_ff=cfg.n_shared_experts * _ffe(cfg))
     return y.reshape(B, S, d), aux
+
+
+def _ffe(cfg: ArchConfig) -> int:
+    return cfg.moe_d_ff or cfg.d_ff
+
+
+def _tp_in(p: dict, xt: torch.Tensor, cfg: ArchConfig):
+    """(the tokens the experts read, whether their width is split over
+    the model group)."""
+    par = p["w_down"].shape[-2] != _ffe(cfg)
+    return (tp.copy_to(xt) if par else xt), par
 
 
 def _experts(p: dict, ein: torch.Tensor) -> torch.Tensor:
@@ -166,8 +187,9 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: ArchConfig, group):
     cap = capacity(cfg, T)
     xt = x.reshape(T, d)
     probs, gate, eidx, slot = _route(p, xt, cfg)
+    xd, par = _tp_in(p, xt, cfg)
     # global slot e * cap + pos == (owner, local expert, pos) row-major
-    xe = torch.repeat_interleave(xt, cfg.expert_top_k, dim=0)
+    xe = torch.repeat_interleave(xd, cfg.expert_top_k, dim=0)
     disp = x.new_zeros(cfg.n_experts * cap + 1, d).index_copy(0, slot, xe)
     disp = disp[:-1].reshape(ep, E_loc, cap, d)
     recv = _AllToAll.apply(disp, group)                   # dim 0: source
@@ -175,6 +197,8 @@ def moe_apply_ep(p: dict, x: torch.Tensor, cfg: ArchConfig, group):
     out_e = _experts(p, ein)                               # (E_loc, ep*cap, d)
     back = out_e.reshape(E_loc, ep, cap, d).movedim(1, 0).contiguous()
     got = _AllToAll.apply(back, group)                     # (ep, E_loc, cap, d)
+    if par:
+        got = tp.reduce_from(got)
     return _combine(got, slot, gate, probs, eidx, p, xt, x, cfg)
 
 
@@ -186,9 +210,12 @@ def moe_apply_local(p: dict, x: torch.Tensor, cfg: ArchConfig):
     cap = capacity(cfg, T)
     xt = x.reshape(T, d)
     probs, gate, eidx, slot = _route(p, xt, cfg)
+    xd, par = _tp_in(p, xt, cfg)
     # position in expert: the exclusive cumsum of the one-hot over the
     # token-major (T*K,) order, which decides which tokens drop
-    xe = torch.repeat_interleave(xt, cfg.expert_top_k, dim=0)     # (T*K, d)
+    xe = torch.repeat_interleave(xd, cfg.expert_top_k, dim=0)     # (T*K, d)
     disp = x.new_zeros(E * cap + 1, d).index_copy(0, slot, xe)
     out_e = _experts(p, disp[:-1].reshape(E, cap, d))            # (E,cap,d)
+    if par:
+        out_e = tp.reduce_from(out_e)
     return _combine(out_e, slot, gate, probs, eidx, p, xt, x, cfg)

@@ -16,12 +16,16 @@ size, or that dict itself):
   axis, the next candidate dim is tried, else the leaf replicates.
 
 Unit-stacked leaves carry a leading ``(n_units,)`` dim, which the rules
-skip.  The port's mesh step (``launch.steps``) places the ``data`` entries
-(expert-parallel leaves) and reads the ``model`` entries for the view
-permutations and the model-local sketch; the forward's tensor parallelism
-is not ported, so a model group holds its parameters replicated.  The
-reference's ``NamedSharding`` trees and activation constraints only serve
-its compiler and have no counterpart.
+skip.  The port's mesh step (``launch.steps``) places both kinds of
+entry: a rank stores the ``data`` slice of an expert-parallel leaf
+(:func:`data_shard_axes`) and the ``model`` slice of a tensor-parallel
+one (:func:`model_shard_axes`), and its forward and backward run
+tensor-parallel over the model group (``models/tp.py``).  The ``model``
+entries also give the view permutations and the model-local sketch.  The
+reference's ``NamedSharding`` trees only serve its compiler and have no
+counterpart; its activation constraint has one in the train path's
+checkpointed units (``models/transformer.py``), which keep their saved
+input as the rank's slice of ``d``.
 """
 
 from __future__ import annotations
@@ -174,6 +178,19 @@ def data_shard_axes(params: dict, cfg: ArchConfig, mesh) -> dict[str, int]:
                                              mesh)):
             names = entry if isinstance(entry, tuple) else (entry,)
             if "data" in names:
+                axes[path] = i
+    return axes
+
+
+def model_shard_axes(params: dict, cfg: ArchConfig, mesh) -> dict[str, int]:
+    """Leaf path -> the dim ``param_spec`` splits over ``model`` (the
+    tensor-parallel leaves); empty on a mesh whose model axis has one
+    rank.  The counterpart of :func:`data_shard_axes`."""
+    axes = {}
+    for path, leaf in layout_lib.flatten(params):
+        for i, entry in enumerate(param_spec(path, tuple(leaf.shape), cfg,
+                                             mesh)):
+            if entry == "model":
                 axes[path] = i
     return axes
 

@@ -12,6 +12,11 @@ the O(1) recurrent update.
 
 Dtypes are the reference's: B, C and the scan in float32, ``y`` cast to
 the input's dtype before ``+ xc * D``.
+
+Under ``tp.model_parallel`` a rank stores the ``d_inner`` shard of each
+leaf ``param_spec`` splits over ``model``, and the train forward gathers
+the leaves at use and computes the block whole on every rank; its
+Megatron forward (the scan split over ``d_inner``) is not written yet.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint
 
-from . import layers
+from . import layers, tp
 from .config import ArchConfig
 
 SSM_CHUNK = 128
@@ -147,8 +152,24 @@ def _h0(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
                        dtype=torch.float32, device=x.device)
 
 
+# the dim of each unit leaf that ``param_spec`` splits when the model
+# group divides d_inner
+_DI_DIMS = {"in_proj": -1, "conv_w": -1, "dt_proj": -1, "conv_b": -1,
+            "dt_bias": -1, "D": -1, "x_proj": 0, "A_log": 0, "out_proj": 0}
+
+
+def _whole(p: dict, cfg: ArchConfig) -> dict:
+    """The block's leaves whole: the shards gathered at use under
+    ``tp.model_parallel``."""
+    if not tp.splits(cfg.d_inner):
+        return p
+    return {k: tp.gather(v, _DI_DIMS[k]) if k in _DI_DIMS else v
+            for k, v in p.items()}
+
+
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence mamba block. x: (B, S, d)."""
+    p = _whole(p, cfg)
     xin, z = _in_proj(p, x, cfg)
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
     A = p["A_log"].to(torch.float32)

@@ -22,6 +22,18 @@ in the frames' dtype, as in the reference.  The serve path (``prefill``,
 reference's does; its KV cache (self- and cross-attention) is bfloat16
 and its recurrent states float32.
 
+Memory on the train path.  ``remat`` (``loss_fn`` / ``value_and_grad``,
+default True as in the reference) checkpoints each unit, each attention
+query block and each cross-entropy chunk (``torch.utils.checkpoint``,
+non-reentrant): the backward recomputes a unit from its saved input.
+Inside ``tp.model_parallel`` (the mesh step) the model runs
+tensor-parallel over the group (``models/tp.py``), and when the group
+divides ``d_model`` a checkpointed unit keeps its saved input as the
+rank's slice of ``d`` and gathers it on recompute (the reference's
+``constrain_activations``).  The recompute gives the same values, so the
+loss and gradients do not depend on ``remat``; it trades memory for a
+second forward of each unit.
+
 Entry points:
 
 * ``loss_fn`` / ``value_and_grad`` — next-token cross entropy plus the
@@ -34,13 +46,18 @@ Entry points:
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.core import layout as layout_lib
 
-from . import attention, layers, moe, ssm, xlstm
+from . import attention, layers, moe, ssm, tp, xlstm
 from .config import ArchConfig, LayerSpec
 
 KINDS = ("attn", "mamba", "mlstm", "slstm")
+# The train path's residual between units: bfloat16, as the reference
+# carries it.  A parity test may set float32 to compare two orders of
+# summation (tensor-parallel against whole) without bfloat16 roundings.
+RESIDUAL_DTYPE = torch.bfloat16
 
 
 def _check_kinds(cfg: ArchConfig) -> None:
@@ -221,26 +238,28 @@ def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig):
     if spec.moe:
         y, aux = moe.moe_apply(mp["moe"], h2, cfg)
         return x + y, aux
-    return x + layers.mlp(mp["mlp"], h2, cfg.act), None
+    return x + layers.mlp(mp["mlp"], h2, cfg.act, cfg.d_ff), None
 
 
 def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
-                      positions: torch.Tensor, enc_out):
+                      positions: torch.Tensor, enc_out,
+                      remat: bool = False):
     """One unit over the full sequence: (x, promoted to float32 by the
     float32 blocks; the unit's aux loss, float32).  A decoder attention
     member of an encoder-decoder cross-attends to ``enc_out`` after its
-    self-attention."""
+    self-attention.  ``remat`` checkpoints the attention blocks."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(cfg.unit_pattern):
         mp = unit_p[f"m{i}"]
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
         if spec.kind == "attn":
             x = x + attention.attn_forward(mp["attn"], h, cfg, positions,
-                                           window=cfg.sliding_window)
+                                           window=cfg.sliding_window,
+                                           remat=remat)
             if "xattn" in mp:
                 hx = layers.rmsnorm(mp["xnorm"], x, cfg.norm_eps)
                 x = x + attention.cross_attn_forward(mp["xattn"], hx,
-                                                     enc_out, cfg)
+                                                     enc_out, cfg, remat)
         elif spec.kind == "mamba":
             x = x + ssm.mamba_forward(mp["mamba"], h, cfg)
         elif spec.kind == "mlstm":
@@ -253,13 +272,19 @@ def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
     return x, aux
 
 
-def _encoder(params: dict, frames: torch.Tensor,
-             cfg: ArchConfig) -> torch.Tensor:
+def _frontend_proj(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    return tp.whole(params["frontend_proj"], -1, cfg.d_model)
+
+
+def _encoder(params: dict, frames: torch.Tensor, cfg: ArchConfig,
+             remat: bool = False) -> torch.Tensor:
     """The whisper encoder: frame embeddings (B, S_enc, d) -> projected,
     plus sinusoidal positions, through ``enc_layers`` bidirectional
     attention units without RoPE -> ``enc_out`` (B, S_enc, d) after the
-    encoder's final norm.  The residual stays in the frames' dtype."""
-    x = layers.matmul(frames, params["frontend_proj"])
+    encoder's final norm.  The residual stays in the frames' dtype.
+    ``remat`` checkpoints the attention blocks (the reference checkpoints
+    no encoder unit)."""
+    x = layers.matmul(frames, _frontend_proj(params, cfg))
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     enc = params["enc"]
     pos = torch.arange(x.shape[1], device=x.device)[None]
@@ -267,36 +292,61 @@ def _encoder(params: dict, frames: torch.Tensor,
         mp = _index(enc["units"]["m0"], u)
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
         x = x + attention.attn_forward(mp["attn"], h, cfg, pos, causal=False,
-                                       use_rope=False)
+                                       use_rope=False, remat=remat)
         h2 = layers.rmsnorm(mp["norm2"], x, cfg.norm_eps)
-        x = x + layers.mlp(mp["mlp"], h2, cfg.act)
+        x = x + layers.mlp(mp["mlp"], h2, cfg.act, cfg.d_ff)
     return layers.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
-def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig):
+def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig,
+                  remat: bool = False):
     """Token and patch fusion: (x (B, P + S, d) with the projected patch
     prefix of P = ``batch["patches"].shape[1]`` positions (vision; P = 0
     otherwise), positions (1, P + S), the encoder's output or None)."""
-    x = layers.embed(params["embed"], batch["tokens"])
+    x = layers.embed(params["embed"], batch["tokens"], cfg.vocab)
     if cfg.frontend == "vision":
-        patches = layers.matmul(batch["patches"], params["frontend_proj"])
+        patches = layers.matmul(batch["patches"], _frontend_proj(params, cfg))
         x = torch.cat([patches.to(x.dtype), x], dim=1)
-    enc_out = _encoder(params, batch["frames"], cfg) if cfg.is_encdec \
-        else None
+    enc_out = _encoder(params, batch["frames"], cfg, remat) \
+        if cfg.is_encdec else None
     positions = torch.arange(x.shape[1], device=x.device)[None]
     return x, positions, enc_out
 
 
-def _backbone_train(params: dict, batch: dict, cfg: ArchConfig):
+def _unit(x: torch.Tensor, unit_p: dict, cfg: ArchConfig, positions,
+          enc_out, remat: bool):
+    """One unit of the train path: the residual leaves it in
+    ``RESIDUAL_DTYPE``."""
+    x, a = _apply_unit_train(x, unit_p, cfg, positions, enc_out, remat)
+    return x.to(RESIDUAL_DTYPE), a
+
+
+def _unit_from_slice(xs: torch.Tensor, *args):
+    """A unit whose saved input is the rank's slice of ``d``, gathered
+    here (again on recompute)."""
+    return _unit(tp.gather(xs, -1), *args)
+
+
+def _backbone_train(params: dict, batch: dict, cfg: ArchConfig,
+                    remat: bool = False):
     """The train path: (final hidden states (B, P + S, d) after the final
-    norm, the MoE aux loss summed over units in float32)."""
-    x, positions, enc_out = _embed_inputs(params, batch, cfg)
-    x = x.to(torch.bfloat16)
+    norm, the MoE aux loss summed over units in float32).  ``remat``
+    checkpoints each unit, whose saved input is the rank's slice of ``d``
+    when the model group divides it."""
+    x, positions, enc_out = _embed_inputs(params, batch, cfg, remat)
+    x = x.to(RESIDUAL_DTYPE)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sliced = tp.splits(cfg.d_model)
     for u in range(cfg.n_units):
-        x, a = _apply_unit_train(x, _index(params["units"], u), cfg,
-                                 positions, enc_out)
-        x = x.to(torch.bfloat16)
+        args = (_index(params["units"], u), cfg, positions, enc_out, remat)
+        if not (remat and torch.is_grad_enabled()):
+            x, a = _unit(x, *args)
+        elif sliced:
+            x, a = checkpoint.checkpoint(_unit_from_slice, tp.split(x, -1),
+                                         *args, use_reentrant=False)
+        else:
+            x, a = checkpoint.checkpoint(_unit, x, *args,
+                                         use_reentrant=False)
         aux = aux + a
     return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -308,29 +358,39 @@ def hidden_states(params: dict, tokens: torch.Tensor,
     return _backbone_train(params, {"tokens": tokens}, cfg)[0]
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig):
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, remat: bool = True):
     """Mean next-token cross entropy plus the MoE aux loss; batch =
     {tokens, labels} (B, S), and ``frames`` (B, enc_seq, d) for an
     encoder-decoder or ``patches`` (B, n_patches, d) for a vision model,
     whose prefix has no loss.  Returns ``(loss + aux, {"xent": loss,
     "aux": aux})`` as the reference does; a model without MoE has aux 0,
-    and ``loss + 0`` is ``loss`` bit for bit."""
-    h, aux = _backbone_train(params, batch, cfg)
+    and ``loss + 0`` is ``loss`` bit for bit.
+
+    ``remat`` defaults to True, the reference's default, which the mesh
+    step runs: each unit, attention query block and cross-entropy chunk
+    is checkpointed (the reference checkpoints the blocks and chunks
+    always; here they follow ``remat``, and no number depends on it).
+    The callers that the reference runs with ``remat=False`` pass it: the
+    orchestrator's clients (``fed.orchestrator``), the main path
+    (``launch.train_lm``) and its profiler (``launch.profile_round``)."""
+    h, aux = _backbone_train(params, batch, cfg, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":             # no loss on the patch prefix
         h = h[:, -labels.shape[1]:]
-    loss = layers.xent_loss(_unembed_p(params), h, labels, cfg.loss_chunk)
+    loss = layers.xent_loss(_unembed_p(params), h, labels, cfg.loss_chunk,
+                            remat=remat, vocab=cfg.vocab)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
-def value_and_grad(params: dict, batch: dict, cfg: ArchConfig
-                   ) -> tuple[torch.Tensor, dict]:
+def value_and_grad(params: dict, batch: dict, cfg: ArchConfig,
+                   remat: bool = True) -> tuple[torch.Tensor, dict]:
     """(loss + aux, grads) with grads the same tree of tensors, what the
-    reference's ``make_grad_fn`` reports."""
+    reference's ``make_grad_fn`` reports; ``remat`` as in
+    :func:`loss_fn`."""
     flat = layout_lib.flatten(params)
     paths = [p for p, _ in flat]
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
-    loss, _ = loss_fn(layout_lib.unflatten(paths, leaves), batch, cfg)
+    loss, _ = loss_fn(layout_lib.unflatten(paths, leaves), batch, cfg, remat)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), layout_lib.unflatten(paths, grads)
 

@@ -19,6 +19,12 @@ Port of ``repro.models.xlstm``.
 Both blocks carry their own 2x up- and down-projections; xLSTM units have
 no FFN.  ``w_if``, ``b_if`` and ``b`` are float32 whatever the parameter
 dtype, as in the reference.
+
+Under ``tp.model_parallel`` a rank stores the shard of each mLSTM leaf
+``param_spec`` splits over ``model`` (``up``, ``wq``, ``wk``, ``wv`` by
+columns, ``down`` and ``w_if`` by rows), and the train forward gathers
+them at use and computes the block whole on every rank; its Megatron
+forward is not written yet.  The sLSTM is replicated.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import layers
+from . import layers, tp
 from .config import ArchConfig
 
 MLSTM_CHUNK = 128
@@ -111,6 +117,10 @@ def mlstm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, state=None,
     di, H = mlstm_inner(cfg), cfg.n_heads
     dh = di // H
     B, S, _ = x.shape
+    p = {k: tp.whole(v, -1, 2 * di) if k == "up" else
+         tp.whole(v, -1, di) if k in ("wq", "wk", "wv") else
+         tp.whole(v, 0, di) if k in ("down", "w_if") else v
+         for k, v in p.items()}
     xin, z = torch.split(layers.matmul(x, p["up"]), [di, di], dim=-1)
     q, k, v, i_g, f_g = _mlstm_qkvif(p, xin, cfg)
     if state is None:

@@ -308,7 +308,10 @@ def recorder_world(rank: int) -> dict:
                                        bundle.layout, aggregate=agg,
                                        sketch_mode=mode, weighted=weighted)
         key = f"{mesh_name}:{arch}:{agg}:{mode}:{'w' if weighted else '-'}"
-        out[key] = (rec.bytes(), want, rec.counts())
+        by_axes = {}
+        for kind, axes, n in rec.calls:
+            by_axes[kind, axes] = by_axes.get((kind, axes), 0) + n
+        out[key] = (rec.bytes(), want, rec.counts(), by_axes)
     return out
 
 
@@ -330,16 +333,23 @@ CASES = ["2x2:internlm2-1.8b:flat:gathered:-",
 def test_recorder_equals_step_collective_bytes(recorded, case):
     table = ROWS * COLS * 4
     for rank in range(4):
-        got, want, counts = recorded[rank][case]
+        got, want, counts, _ = recorded[rank][case]
         assert got == want, (rank, got, want)
-    got, _, counts = recorded[0][case]
-    if ":tree:" in case:
-        assert got["all-reduce"] == table + 4 + (4 if ":w" in case else 0)
-    if "model_local" in case:
-        assert got["all-reduce"] == table           # the sum over model
-    if "qwen2-moe-ep" in case:
+    got, _, counts, by_axes = recorded[0][case]
+    if ":tree:" in case:        # over the client axis (model: the layers')
+        assert by_axes["all-reduce", ("data",)] == \
+            table + 4 + (4 if ":w" in case else 0)
+    if "model_local" in case:   # the layers' collectives and the table's
+        layers = tanalysis._coll_dict(tanalysis.model_collective_calls(
+            tconfigs.get_smoke("internlm2-1.8b"),
+            tshapes.ShapeSpec("t", "train", SEQ, BATCH),
+            {"data": 1, "model": 4}))
+        assert by_axes["all-reduce", ("model",)] == \
+            layers["all-reduce"] + table                 # the sum over model
+        assert by_axes["all-gather", ("model",)] == layers["all-gather"]
+    if "qwen2-moe-ep" in case:  # forward, recompute, backward
         cfg = _qwen2_moe_ep()
         n_moe = cfg.n_units
-        assert counts["all-to-all"] == 4 * n_moe
-        assert got["all-to-all"] == 4 * n_moe * tanalysis.exchange_bytes(
+        assert counts["all-to-all"] == 6 * n_moe
+        assert got["all-to-all"] == 6 * n_moe * tanalysis.exchange_bytes(
             cfg, BATCH // 2 * SEQ, 2)

@@ -160,7 +160,9 @@ def test_rank_params_are_local_params_and_the_cache_its_batch():
         roof, _, n = tdryrun.run_one("llama4-maverick-400b-a17b",
                                      "decode_32k", verbose=False, rank=19)
         m = tmesh.make_production_mesh()
-        local = tsteps.local_params(tsteps.param_structs(cfg), cfg, m)
+        # a serve shape: the model whole on each model rank
+        local = tsteps.local_params(tsteps.param_structs(cfg), cfg, m,
+                                    split_model=False)
     want = sum(t.numel() * t.element_size() for _, t in TL.flatten(local))
     assert roof.mem_detail["params"] == want
     assert want < n * 2 / 4          # the experts split over 16 data ranks

@@ -93,19 +93,21 @@ def policies(mesh, npz_path) -> dict:
         b = tsteps.make_train_step(cfg, shape, mesh, fs, **kw)
         return b.fn(fresh(), TF.init_state(fs), batch, base.LR)
 
+    def whole(p):          # the model shards gathered
+        return base.flat_np(tsteps.gather_params(p, cfg, mesh))
+
     out = {}
     p, _, m = run(aggregate="flat")
-    out["flat"] = (float(m["loss"]), base.flat_np(p), m["table"].numpy())
+    out["flat"] = (float(m["loss"]), whole(p), m["table"].numpy())
     p, _, m = run(aggregate="flat", sketch_mode="model_local")
-    out["model_local"] = (float(m["loss"]), base.flat_np(p),
-                          m["table"].numpy())
+    out["model_local"] = (float(m["loss"]), whole(p), m["table"].numpy())
     b = tsteps.make_train_step(cfg, shape, mesh, fs, aggregate="async")
     p, opt, m = b.fn(fresh(), TF.init_state(fs), batch, base.LR, 1.0, zeros,
                      0.0)
-    out["async"] = (float(m["loss"]), base.flat_np(p), m["table"].numpy())
+    out["async"] = (float(m["loss"]), whole(p), m["table"].numpy())
     params, state = fresh(), TF.init_state(fs)
     p, opt, m = b.fn(params, state, batch, base.LR, 0.0, zeros, 0.0)
-    out["async-zero"] = (base.flat_np(p), opt is state, opt.step,
+    out["async-zero"] = (whole(p), opt is state, opt.step,
                          float(opt.error_sketch.abs().sum()),
                          m["table"].numpy())
     return out

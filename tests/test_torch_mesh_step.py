@@ -12,7 +12,10 @@ on 127.0.0.1, a (data 2, model 2) mesh.
   the port's world does.
 * The rest of the policies' contracts on the port alone: ``weighted``
   flat equals weighted tree within 1e-5, and the single-device step on the
-  weighted mean gradient, in the mesh's (permuted) layout, to rtol 1e-5;
+  weighted mean gradient, in the mesh's (permuted) layout, to rtol 1e-5
+  (both with a float32 residual: the step is tensor-parallel over
+  ``model``, whose other order of summation would otherwise flip
+  bfloat16 roundings);
   ``mesh_aggregate`` flat, tree and weighted
   equal the host aggregators on the same tables; every rank of the mesh
   ends with the same parameters.
@@ -219,17 +222,24 @@ def port_world(rank: int, npz_path: str) -> dict:
         return tsteps.local_params(params_from_numpy(TL.unflatten(
             list(init), list(init.values()))), cfg, mesh)
 
+    def whole(p):          # the model shards gathered
+        return flat_np(tsteps.gather_params(p, cfg, mesh))
+
     out = {}
     for agg in ("flat", "tree", "dense"):
         b = tsteps.make_train_step(cfg, shape, mesh, fs, aggregate=agg)
         p, opt, m = b.fn(fresh(), TF.init_state(fs), batch, LR)
-        out[agg] = (float(m["loss"]), flat_np(p))
+        out[agg] = (float(m["loss"]), whole(p))
         assert opt.step == 1
+    # the weighted merge against the single-device step: a float32
+    # residual, so the tensor-parallel sums flip no bfloat16 rounding
+    tt.RESIDUAL_DTYPE = torch.float32
     for agg in ("flat", "tree"):
         b = tsteps.make_train_step(cfg, shape, mesh, fs, aggregate=agg,
                                    weighted=True)
         p, _, m = b.fn(fresh(), TF.init_state(fs), batch, LR, WEIGHTS)
-        out["weighted-" + agg] = (float(m["loss"]), flat_np(p))
+        out["weighted-" + agg] = (float(m["loss"]), whole(p))
+    tt.RESIDUAL_DTYPE = torch.bfloat16
     # mesh_aggregate against the host aggregators, on tables drawn per rank
     gen = [torch.Generator().manual_seed(100 + r) for r in range(4)]
     tables = [torch.randn(ROWS, COLS, generator=g) for g in gen]
@@ -294,10 +304,14 @@ def test_weighted_flat_equals_weighted_tree_and_the_weighted_mean(runs):
     params = params_from_numpy(TL.unflatten(list(init), list(init.values())))
     tok = torch.from_numpy(ref["tokens"]).long()
     grads = []
-    for i in range(2):
-        shard = {"tokens": tok[2 * i:2 * i + 2],
-                 "labels": torch.roll(tok, -1, 1)[2 * i:2 * i + 2]}
-        grads.append(tt.value_and_grad(params, shard, cfg)[1])
+    tt.RESIDUAL_DTYPE = torch.float32          # as the mesh's weighted runs
+    try:
+        for i in range(2):
+            shard = {"tokens": tok[2 * i:2 * i + 2],
+                     "labels": torch.roll(tok, -1, 1)[2 * i:2 * i + 2]}
+            grads.append(tt.value_and_grad(params, shard, cfg)[1])
+    finally:
+        tt.RESIDUAL_DTYPE = torch.bfloat16
     w0, w1 = WEIGHTS
     gmean = TL.tree_map(lambda a, b: (w0 * a + w1 * b) / (w0 + w1), *grads)
     fs = TF.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
