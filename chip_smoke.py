@@ -78,8 +78,21 @@ In order, it
     residual; the common values within 1e-2 with the bfloat16 one), the
     resident parameter bytes equal to the shard sum, each rank's peak
     memory, its recorded collectives and s/round, model_local (view
-    permutations, strided chunks) against gathered; seconds per round and
-    of one table's all_reduce (``chip_smoke_mesh.json``);
+    permutations, strided chunks) against gathered; mesh 1x2 of
+    xlstm-350m with a float32 residual (the Megatron mLSTM forward and
+    backward, the sLSTM replicated; gathered, 3 rounds, round 0 against
+    the world-of-1 ``F.step``, launches, resident bytes); tensor-parallel
+    serving at mesh 1x2 (``make_prefill_step`` / ``make_decode_step``,
+    each rank its ``param_spec`` shard, drawn in turn, and its
+    ``cache_spec`` slice of a float32 cache) of qwen3-0.6b, xlstm-350m,
+    jamba-v0.1-52b (8 of its 32 layers, in float32) and whisper-small:
+    batch 2, a prompt of 64 and 32 greedy tokens, held to the same run
+    as a world of 1 (tokens equal, logits within 1e-4 of the largest),
+    resident parameter and cache bytes equal to the shard sums, each
+    rank's peak within 25% of the dry-run's prediction for it, the
+    recorded collectives equal to ``step_collective_bytes``, prefill
+    seconds and decode ms/token beside the world of 1's; seconds per
+    round and of one table's all_reduce (``chip_smoke_mesh.json``);
 11. runs the dry-run (``dryrun``): ``python -m repro_torch.launch.dryrun``
     in processes that see no card (qwen3-0.6b train_4k at 16 x 16 and at
     2 x 16 x 16, llama4-maverick-400b-a17b train_4k model_local), each
@@ -89,8 +102,9 @@ In order, it
     card equal the ``meta`` count, the peak memory of a round lies within
     25% of the predicted per-rank memory, and the mesh phase's 2 x 1 flat
     run's recorded collectives equal ``step_collective_bytes`` to the
-    byte, and its 1 x 2 tensor-parallel runs' peaks within 25% of the
-    prediction for each rank and their collectives equal to the formula;
+    byte, and its 1 x 2 tensor-parallel runs' peaks (qwen3-0.6b, and
+    xlstm-350m with its float32 residual) within 25% of the prediction for
+    each rank and their collectives equal to the formula;
     the forward and backward alone at 8 x 64 and 4 x 1024 tokens
     (under ``FlopCounterMode`` and plain) against the live bytes and FLOPs
     counted on ``meta``, and at 4 x 1024 with ``remat`` (the mesh step's
@@ -1879,6 +1893,15 @@ def mesh_rank(rank: int, dev_type: str) -> dict:
     del init
     if isinstance(out["all_to_all_cuda"], list):
         out["moe_ep"] = moe_ep_check(torch, mesh, dev)
+    # the mLSTM's Megatron forward and backward on the mesh step, with a
+    # float32 residual throughout (xlstm's bfloat16 roundings flip apart)
+    xcfg = configs.get_config(XLSTM_TRAIN)
+    init = transformer.init_params(xcfg, seed=0, device=dev)
+    out["xlstm_tp"] = tp_run(torch, dev, dev_type, xcfg, fs, shape, init,
+                             mesh_batch(torch, dev, xcfg), lr, timed,
+                             modes=("gathered",), residual=torch.float32)
+    del init
+    out["serve_tp"] = serve_tp_run(torch, dev, dev_type)
     return out
 
 
@@ -1886,15 +1909,18 @@ TP_ROUNDS = 3
 
 
 def tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch, lr,
-           timed) -> dict:
+           timed, modes=("gathered", "model_local"),
+           residual=None) -> dict:
     """Mesh 1 x 2 on this rank: the step tensor-parallel over the two
     ranks (each holds its ``param_spec`` shard, the forward and backward
-    split over heads, FFN width and vocab, with ``remat``), gathered and
-    model_local, ``TP_ROUNDS`` rounds each.  Records round 0 against the
-    world-of-1 ``F.step`` (the whole model's gradient on the same batch,
-    in the 1 x 2 layout), the rank's resident parameter bytes against the
-    ``param_spec`` shard sum, its peak memory of round 1 over what it
-    held before the step, the recorded collectives and s/round."""
+    split over heads, FFN width and vocab, with ``remat``), in each sketch
+    mode of ``modes``, ``TP_ROUNDS`` rounds each, with the residual
+    ``residual`` (the train path's bfloat16 if None).  Records round 0
+    against the world-of-1 ``F.step`` (the whole model's gradient on the
+    same batch, in the 1 x 2 layout), the rank's resident parameter bytes
+    against the ``param_spec`` shard sum, its peak memory of round 1 over
+    what it held before the step, the recorded collectives and
+    s/round."""
     from repro_torch.core import fetchsgd as F
     from repro_torch.core import layout as layout_lib
     from repro_torch.kernels import ops
@@ -1926,6 +1952,8 @@ def tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch, lr,
     finally:
         transformer.RESIDUAL_DTYPE = torch.bfloat16
     del single, params, bundle
+    if residual is not None:
+        transformer.RESIDUAL_DTYPE = residual
     single = world_of_1()
     structs = steps.param_structs(cfg)
     spec_bytes = 0
@@ -1938,7 +1966,7 @@ def tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch, lr,
     out = dict(perms=sum(p is not None for p in lay12.leaf_perms),
                spec_bytes=spec_bytes, runs={}, f32_vs_single=f32_gap)
     after, gaps = {}, {}
-    for name in ("gathered", "model_local"):
+    for name in modes:
         bundle = steps.make_train_step(cfg, shape, mesh12, fs,
                                        sketch_mode=name)
         sync(torch, dev)
@@ -1985,8 +2013,10 @@ def tp_run(torch, dev, dev_type, cfg, fs, shape, init, batch, lr,
             collectives=analysis._coll_dict(calls), rounds=TP_ROUNDS,
             vs_single=gaps[name])
         del params, opt, m
-    out["model_local_vs_gathered"] = delta_gap(
-        torch, after["model_local"], after["gathered"], to_host(init))
+    transformer.RESIDUAL_DTYPE = torch.bfloat16
+    if "model_local" in modes:
+        out["model_local_vs_gathered"] = delta_gap(
+            torch, after["model_local"], after["gathered"], to_host(init))
     del after, single
     return out
 
@@ -2035,8 +2065,240 @@ def moe_ep_check(torch, mesh, dev) -> dict:
                 max_abs=float(want.abs().max()), ep_s=t_ep, local_s=t_local)
 
 
-def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
-    """Two ranks on the one card (gloo over CUDA tensors)."""
+# -- tensor-parallel serving over the two ranks -------------------------------------
+
+# full width; jamba at 1 of its 4 units (8 of 32 layers) and in float32,
+# so that the two ranks' shards (26.6 GB each) and the world of 1 (53.1 GB,
+# alone before them) fit the card and the logits compare at float32
+MESH_SERVE = {"qwen3-0.6b": {}, "xlstm-350m": {},
+              "jamba-v0.1-52b": dict(n_layers=8, param_dtype="float32"),
+              "whisper-small": {}}
+MESH_SERVE_B, MESH_SERVE_PROMPT, MESH_SERVE_TOKENS = 2, 64, 32
+MESH_SERVE_TOL = 1e-4                    # of the largest logit
+XLSTM_TRAIN = "xlstm-350m"               # the mesh step's mLSTM round
+
+
+def mesh_serve_cfg(arch: str):
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(arch), **MESH_SERVE[arch])
+
+
+def mesh_serve_inputs(torch, dev, cfg) -> dict:
+    """The requests: prompts of ``MESH_SERVE_PROMPT`` tokens and the stub
+    frontend's frames, from a seeded CPU generator."""
+    from repro_torch.launch import serve_lm
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab, (MESH_SERVE_B, MESH_SERVE_PROMPT),
+                            generator=gen)
+    out = {"tokens": prompts,
+           **serve_lm.frontend_inputs(cfg, MESH_SERVE_B, gen)}
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def greedy(torch, dev, prefill, decode, inputs: dict, n: int) -> dict:
+    """Prefill ``inputs`` and decode ``n`` greedy tokens: the logits of
+    each step (on the host, float32), the tokens, the prefill's seconds
+    and each decode step's."""
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, _ = prefill(inputs)
+    sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    out, toks, secs = [logits.float().cpu()], [], []
+    for _ in range(n):
+        tok = logits.argmax(-1, keepdim=True)
+        toks.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, _ = decode(tok)
+        sync(torch, dev)
+        secs.append(time.perf_counter() - t0)
+        out.append(logits.float().cpu())
+    return dict(logits=torch.stack(out).numpy(),
+                tokens=torch.cat(toks, 1).numpy(), prefill_s=prefill_s,
+                decode_s=secs)
+
+
+def spec_bytes(tree: dict, spec_of, mesh: dict) -> int:
+    """The bytes of ``tree``'s leaves, each over the mesh axes its spec
+    names (``spec_of(path, shape)``): a rank's shard sum."""
+    from repro_torch.core import layout as layout_lib
+    total = 0
+    for path, t in layout_lib.flatten(tree):
+        n = t.numel() * t.element_size()
+        for entry in spec_of(path, tuple(t.shape)):
+            for ax in (entry if isinstance(entry, tuple) else (entry,)):
+                if ax is not None:
+                    n //= mesh[ax]
+        total += n
+    return total
+
+
+def mesh_serve_world_of_1(torch, dev, smi_line: str) -> dict:
+    """Each serve case as a world of 1 on the card (float32 cache):
+    the greedy run the two ranks are held to, and its ms/token."""
+    from repro_torch.models import transformer
+
+    out = {}
+    for arch in MESH_SERVE:
+        cfg = mesh_serve_cfg(arch)
+        params = transformer.init_params(cfg, seed=0, device=dev)
+        cache = transformer.init_cache(
+            cfg, MESH_SERVE_B, MESH_SERVE_PROMPT + MESH_SERVE_TOKENS,
+            torch.float32, dev)
+        with torch.no_grad():
+            res = greedy(
+                torch, dev,
+                lambda b: transformer.prefill(params, b, cfg, cache),
+                lambda t: transformer.decode_step(params, t, cfg, cache),
+                mesh_serve_inputs(torch, dev, cfg), MESH_SERVE_TOKENS)
+        ms = statistics.median(res["decode_s"]) * 1e3
+        print(f"mesh serve world of 1 {arch}: prefill {res['prefill_s']:.4f}"
+              f" s, decode {ms:.3f} ms/token ({smi_line})")
+        out[arch] = res
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_run(torch, dev, dev_type) -> dict:
+    """Each serve case at mesh 1 x 2 on this rank: the rank draws its
+    ``param_spec`` shard (the ranks in turn, one member of the whole tree
+    alive at a time) and its ``cache_spec`` slice of a float32 cache, then
+    prefills and decodes greedily through the serve steps,
+    tensor-parallel over the two ranks.  Records the greedy run, the
+    resident parameter and cache bytes beside the shard sums, the peak
+    memory of the serve over what the rank held before it, and the
+    recorded collectives."""
+    import torch.distributed as dist
+    from repro_torch.core import layout as layout_lib
+    from repro_torch.launch import analysis, mesh as mesh_lib, shapes, steps
+    from repro_torch.models import sharding, transformer
+
+    mesh12 = mesh_lib.make_debug_mesh(1, 2, dev_type)
+    m12 = {"data": 1, "model": 2}
+    seq = MESH_SERVE_PROMPT + MESH_SERVE_TOKENS
+    out = {}
+    for arch in MESH_SERVE:
+        cfg = mesh_serve_cfg(arch)
+        sync(torch, dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        for turn in range(2):
+            if turn == mesh12.index("model"):
+                params = transformer.init_params(
+                    cfg, seed=0, device=dev,
+                    shard=steps.param_shard(cfg, mesh12))
+                sync(torch, dev)
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cache = transformer.init_cache(cfg, MESH_SERVE_B, seq, torch.float32,
+                                       dev, model=2)
+        pre_shape = shapes.ShapeSpec("p", "prefill", MESH_SERVE_PROMPT,
+                                     MESH_SERVE_B)
+        dec_shape = shapes.ShapeSpec("d", "decode", seq, MESH_SERVE_B)
+        pre = steps.make_prefill_step(cfg, pre_shape, mesh12)
+        dec = steps.make_decode_step(cfg, dec_shape, mesh12)
+        with analysis.CollectiveRecorder() as rec:
+            res = greedy(torch, dev, lambda b: pre.fn(params, b, cache),
+                         lambda t: dec.fn(params, t, cache),
+                         mesh_serve_inputs(torch, dev, cfg),
+                         MESH_SERVE_TOKENS)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        glob = transformer.init_cache(cfg, MESH_SERVE_B, seq, torch.float32,
+                                      device="meta")
+        pre_b, dec_b = (analysis.step_collective_bytes(cfg, sh, m12, None,
+                                                       None)
+                        for sh in (pre_shape, dec_shape))
+        formula = {k: pre_b.get(k, 0) + MESH_SERVE_TOKENS * dec_b.get(k, 0)
+                   for k in set(pre_b) | set(dec_b)}
+        out[arch] = dict(
+            res, peak=peak,
+            resident_bytes=sum(t.numel() * t.element_size()
+                               for _, t in layout_lib.flatten(params)),
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for _, t in layout_lib.flatten(cache)),
+            spec_bytes=spec_bytes(
+                steps.param_structs(cfg),
+                lambda p, sh: sharding.param_spec(p, sh, cfg, m12), m12),
+            cache_spec_bytes=spec_bytes(
+                glob, lambda p, sh: sharding.cache_spec(p, sh, cfg, m12),
+                m12),
+            collectives=rec.bytes(), formula=formula)
+        del params, cache, pre, dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_checks(res: list[dict], one: dict, smi_line: str) -> dict:
+    """The two ranks' tensor-parallel serves against the world of 1 and
+    the dry-run: greedy tokens equal, the logits within
+    ``MESH_SERVE_TOL`` of the largest, resident bytes equal to the shard
+    sums, each rank's peak within ``DRYRUN_MEM_RTOL`` of the dry-run's
+    prediction for that rank, the collectives equal to the formula."""
+    import numpy as np
+    from repro_torch.launch import dryrun, shapes
+
+    seq = MESH_SERVE_PROMPT + MESH_SERVE_TOKENS
+    out = {}
+    for arch, want in one.items():
+        scale = float(np.abs(want["logits"]).max())
+        ms1 = statistics.median(want["decode_s"]) * 1e3
+        for rank, r in enumerate(res):
+            got = r["serve_tp"][arch]
+            pred = max(dryrun.run_one(
+                arch, kind, shape=shapes.ShapeSpec(kind, kind, n,
+                                                   MESH_SERVE_B),
+                debug_mesh=(1, 2), rank=rank, verbose=False,
+                cfg_overrides=MESH_SERVE[arch] or None)[0].peak_mem_bytes
+                for kind, n in (("prefill", MESH_SERVE_PROMPT),
+                                ("decode", seq)))
+            err = float(np.abs(got["logits"] - want["logits"]).max())
+            ratio = got["peak"] / pred
+            ms2 = statistics.median(got["decode_s"]) * 1e3
+            g = 2 ** 30
+            print(f"mesh serve 1x2 {arch} rank {rank}: params "
+                  f"{got['resident_bytes']:,} B, cache {got['cache_bytes']:,}"
+                  f" B, peak {got['peak'] / g:.4f} GiB (predicted "
+                  f"{pred / g:.4f}, ratio {ratio:.4f}), prefill "
+                  f"{got['prefill_s']:.4f} s, decode {ms2:.3f} ms/token "
+                  f"(world of 1: {ms1:.3f}), logits within {err:.3e} of "
+                  f"{scale:.3f}, collectives {got['collectives']} "
+                  f"({smi_line})")
+            check(np.array_equal(got["tokens"], want["tokens"]),
+                  f"mesh serve 1x2 {arch} rank {rank}: the "
+                  f"{MESH_SERVE_TOKENS} greedy tokens equal the world of 1's")
+            check(err <= MESH_SERVE_TOL * scale,
+                  f"mesh serve 1x2 {arch} rank {rank}: logits within "
+                  f"{err:.3e} of the world of 1's (tol {MESH_SERVE_TOL:g} "
+                  f"of the largest, {scale:.3f})")
+            check(got["resident_bytes"] == got["spec_bytes"]
+                  and got["cache_bytes"] == got["cache_spec_bytes"],
+                  f"mesh serve 1x2 {arch} rank {rank}: resident parameters "
+                  f"{got['resident_bytes']:,} B and cache "
+                  f"{got['cache_bytes']:,} B = the param_spec / cache_spec "
+                  f"shard sums")
+            check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
+                  f"mesh serve 1x2 {arch} rank {rank}: peak within "
+                  f"{DRYRUN_MEM_RTOL:.0%} of the dry-run's prediction "
+                  f"(ratio {ratio:.4f})")
+            check(got["collectives"] == got["formula"],
+                  f"mesh serve 1x2 {arch} rank {rank}: recorded collectives "
+                  f"= step_collective_bytes of the prefill and "
+                  f"{MESH_SERVE_TOKENS} decode steps {got['formula']}")
+            out[f"{arch}/{rank}"] = dict(
+                {k: v for k, v in got.items() if k not in ("logits",
+                                                           "tokens")},
+                predicted_peak=pred, ratio=ratio, max_abs_err=err,
+                max_abs=scale, ms_per_token=ms2, world_of_1=dict(
+                    ms_per_token=ms1, prefill_s=want["prefill_s"],
+                    decode_s=want["decode_s"]))
+    return out
+
+
+def mesh_world_of_2(torch, dev, smi_line: str, serve_one: dict) -> dict:
+    """Two ranks on the one card (gloo over CUDA tensors); ``serve_one``:
+    the serve cases' world-of-1 runs."""
     from repro_torch.launch import mesh as mesh_lib
 
     res = mesh_lib.spawn(mesh_rank, 2, (dev.type,), device=dev.type,
@@ -2104,6 +2366,29 @@ def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
               f"{tp['runs']['model_local']['strided_chunks']} strided chunks")
         check_delta(tp["model_local_vs_gathered"],
                     "mesh 1x2 model_local vs gathered")
+    for rank, r in enumerate(res):
+        xt = r["xlstm_tp"]
+        check_delta(xt["f32_vs_single"],
+                    f"mesh 1x2 {XLSTM_TRAIN} rank {rank} round 0 vs the "
+                    f"world-of-1 F.step, both with a float32 residual")
+        run = xt["runs"]["gathered"]
+        print(f"mesh 1x2 tensor-parallel {XLSTM_TRAIN} rank {rank}, float32 "
+              f"residual: losses {run['losses']} s/round {run['seconds']} "
+              f"launches {run['launches']} resident "
+              f"{run['resident_bytes']:,} B peak {run['peak']:,} B "
+              f"({smi_line})")
+        check(run["launches"] == run["expected"],
+              f"mesh 1x2 {XLSTM_TRAIN} rank {rank}: launched "
+              f"{run['expected']}")
+        check(all(math.isfinite(x) for x in run["losses"]),
+              f"mesh 1x2 {XLSTM_TRAIN} rank {rank}: every loss finite")
+        check(run["resident_bytes"] == xt["spec_bytes"],
+              f"mesh 1x2 {XLSTM_TRAIN} rank {rank}: resident parameters "
+              f"{run['resident_bytes']:,} B = the param_spec shard sum")
+        check_delta(run["vs_single"],
+                    f"mesh 1x2 {XLSTM_TRAIN} rank {rank} round 0 of the "
+                    f"measured run vs the world-of-1 F.step (float32)")
+    serve = mesh_serve_checks(res, serve_one, smi_line)
     ar = r0["all_reduce_table_s"]
     print(f"mesh 2-rank: all_reduce of one {ROWS * COLS * 4 / 1e6:.2f} MB "
           f"table {ar} s; all_to_all on CUDA tensors: "
@@ -2121,16 +2406,19 @@ def mesh_world_of_2(torch, dev, smi_line: str) -> dict:
               "the EP exchange on the card waits for two cards")
     return dict(all_reduce_table_s=ar, all_to_all_cuda=r0["all_to_all_cuda"],
                 moe_ep=[r.get("moe_ep") for r in res], runs=r0["runs"],
-                loss_halves=r0["loss_halves"], tp=[r["tp"] for r in res])
+                loss_halves=r0["loss_halves"], tp=[r["tp"] for r in res],
+                xlstm_tp=[r["xlstm_tp"] for r in res], serve_tp=serve)
 
 
 def mesh_phase(torch, dev, smi_line: str) -> dict:
     """The mesh train step at full width (qwen3-0.6b, seq 64, global batch
     8, the main path's 5 x 2**20 sketch, k = 25,000): a world of 1 through
-    the CLI in every policy, then two ranks sharing the card."""
+    the CLI in every policy; the tensor-parallel serve cases as worlds of
+    1; then two ranks sharing the card."""
     t0 = time.time()
     one = mesh_world_of_1(torch, dev, smi_line)
-    two = mesh_world_of_2(torch, dev, smi_line)
+    serve_one = mesh_serve_world_of_1(torch, dev, smi_line)
+    two = mesh_world_of_2(torch, dev, smi_line, serve_one)
     return dict(world_of_1=one, world_of_2=two, seconds=time.time() - t0)
 
 
@@ -2268,46 +2556,55 @@ def dryrun_activations(torch, dev, cfg, smi_line: str) -> list[dict]:
     return res
 
 
-def dryrun_tp(ranks: list[dict], cfg, fs, shape, smi_line: str) -> dict:
-    """The dry-run's prediction for the mesh phase's 1 x 2 tensor-parallel
-    step (each rank: ``run_one`` as that rank of a fake world of 2)
-    against each rank's peak memory on the card, and
-    ``step_collective_bytes`` against each rank's recorded collectives,
-    to the byte."""
+def dryrun_tp(ranks: list[dict], cfg, fs, shape, smi_line: str,
+              arch: str = MESH_ARCH, residual=None) -> dict:
+    """The dry-run's prediction for a mesh phase's 1 x 2 tensor-parallel
+    step of ``arch`` (each rank: ``run_one`` as that rank of a fake world
+    of 2, with the run's residual: bfloat16 if None) against each rank's
+    peak memory on the card, and ``step_collective_bytes`` against each
+    rank's recorded collectives, to the byte."""
+    import torch
     from repro_torch.launch import analysis, dryrun, steps
+    from repro_torch.models import transformer
 
     m12 = {"data": 1, "model": 2}
     lay = steps.build_layout(cfg, m12)
     out = {}
-    for name in ("gathered", "model_local"):
-        one = analysis.step_collective_bytes(cfg, shape, m12, fs, lay,
-                                             sketch_mode=name)
-        for rank, r in enumerate(ranks):
-            run = r["runs"][name]
-            roof, _, _ = dryrun.run_one(MESH_ARCH, "mesh", shape=shape,
-                                        debug_mesh=(1, 2), fs_cfg=fs,
-                                        sketch_mode=name, rank=rank,
-                                        verbose=False)
-            ratio = run["peak"] / roof.peak_mem_bytes
-            want = {k: v * run["rounds"] for k, v in one.items()}
-            g = 2 ** 30
-            print(f"dryrun: mesh 1x2 {name} rank {rank}: peak of round 1 "
-                  f"{run['peak'] / g:.4f} GiB, predicted "
-                  f"{roof.peak_mem_bytes / g:.4f} GiB ({roof.mem_detail}), "
-                  f"ratio {ratio:.4f}; collectives {run['collectives']} "
-                  f"({smi_line})")
-            check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
-                  f"dryrun: mesh 1x2 {name} rank {rank}: the card's peak "
-                  f"within {DRYRUN_MEM_RTOL:.0%} of the prediction "
-                  f"(ratio {ratio:.4f})")
-            check(run["collectives"] == want,
-                  f"dryrun: mesh 1x2 {name} rank {rank}: recorded "
-                  f"collectives {run['collectives']} = step_collective_bytes "
-                  f"x {run['rounds']} rounds {want}")
-            out[f"{name}/{rank}"] = dict(
-                peak=run["peak"], predicted=roof.peak_mem_bytes, ratio=ratio,
-                mem=roof.mem_detail, collectives=run["collectives"],
-                formula=want, seconds=run["seconds"])
+    transformer.RESIDUAL_DTYPE = residual or torch.bfloat16
+    try:
+        for name in ranks[0]["runs"]:
+            one = analysis.step_collective_bytes(cfg, shape, m12, fs, lay,
+                                                 sketch_mode=name)
+            for rank, r in enumerate(ranks):
+                run = r["runs"][name]
+                roof, _, _ = dryrun.run_one(arch, "mesh", shape=shape,
+                                            debug_mesh=(1, 2), fs_cfg=fs,
+                                            sketch_mode=name, rank=rank,
+                                            verbose=False)
+                ratio = run["peak"] / roof.peak_mem_bytes
+                want = {k: v * run["rounds"] for k, v in one.items()}
+                g = 2 ** 30
+                print(f"dryrun: mesh 1x2 {arch} {name} rank {rank}: peak "
+                      f"of round 1 {run['peak'] / g:.4f} GiB, predicted "
+                      f"{roof.peak_mem_bytes / g:.4f} GiB "
+                      f"({roof.mem_detail}), ratio {ratio:.4f}; collectives "
+                      f"{run['collectives']} ({smi_line})")
+                check(abs(ratio - 1) <= DRYRUN_MEM_RTOL,
+                      f"dryrun: mesh 1x2 {arch} {name} rank {rank}: the "
+                      f"card's peak within {DRYRUN_MEM_RTOL:.0%} of the "
+                      f"prediction (ratio {ratio:.4f})")
+                check(run["collectives"] == want,
+                      f"dryrun: mesh 1x2 {arch} {name} rank {rank}: "
+                      f"recorded collectives {run['collectives']} = "
+                      f"step_collective_bytes x {run['rounds']} rounds "
+                      f"{want}")
+                out[f"{name}/{rank}"] = dict(
+                    peak=run["peak"], predicted=roof.peak_mem_bytes,
+                    ratio=ratio, mem=roof.mem_detail,
+                    collectives=run["collectives"], formula=want,
+                    seconds=run["seconds"])
+    finally:
+        transformer.RESIDUAL_DTYPE = torch.bfloat16
     return out
 
 
@@ -2396,6 +2693,9 @@ def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
           f"{run['collectives']} = step_collective_bytes x "
           f"{run['rounds']} rounds {want}")
     tp = dryrun_tp(mesh["world_of_2"]["tp"], cfg, fs, shape, smi_line)
+    xlstm_tp = dryrun_tp(mesh["world_of_2"]["xlstm_tp"],
+                         configs.get_config(XLSTM_TRAIN), fs, shape,
+                         smi_line, arch=XLSTM_TRAIN, residual=torch.float32)
 
     s = statistics.median(seconds)
     model_flops, step_flops = roof.model_flops, roof.step_flops
@@ -2415,7 +2715,7 @@ def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
                                coll=roof.coll_detail, row=roof.row()),
                 card=dict(flops=flops, peak=peak, ratio=ratio,
                           seconds=seconds),
-                fwd_bwd=fwd_bwd, tp_1x2=tp,
+                fwd_bwd=fwd_bwd, tp_1x2=tp, xlstm_tp_1x2=xlstm_tp,
                 collectives_2x1=run["collectives"], formula_2x1=want,
                 model_flops=model_flops, step_flops=step_flops, **shares,
                 seconds=time.time() - t0)

@@ -24,9 +24,10 @@ does instead, on ``meta`` tensors in a world of fake ranks (the dry-run,
 * :class:`CollectiveRecorder` records each collective the step runs
   (``Mesh.all_sum`` / ``all_mean`` / ``all_gather``, the EP exchange
   ``moe._all_to_all`` and the tensor-parallel ``tp._all_reduce`` /
-  ``tp._all_gather``), and :func:`step_collective_bytes` gives the same
-  bytes of a train step from its configuration alone, for a world that
-  cannot run: the recorder is the formula's oracle.
+  ``tp._all_gather`` / ``tp._all_to_all``), and
+  :func:`step_collective_bytes` gives the same bytes of a train, prefill
+  or decode step from its configuration alone, for a world that cannot
+  run: the recorder is the formula's oracle.
 
 The counters run the step as it is: its ``torch.utils.checkpoint``
 regions too.  The non-reentrant checkpoint drops what a region saves
@@ -56,7 +57,7 @@ from repro_torch.core import layout as layout_lib
 from repro_torch.core import model_local
 from repro_torch.core import topk as topk_lib
 from repro_torch.kernels import count_sketch
-from repro_torch.models import moe, sharding, tp, transformer
+from repro_torch.models import moe, sharding, ssm, tp, transformer, xlstm
 
 from . import mesh as mesh_lib
 from . import steps
@@ -302,10 +303,11 @@ class CollectiveRecorder:
     ``Mesh.all_sum`` and ``all_mean`` (kind ``all-reduce``, the operand's
     bytes), ``Mesh.all_gather`` (``all-gather``, the gathered result's
     bytes), the EP exchange ``moe._all_to_all`` (``all-to-all``, the
-    buffer's bytes) and the tensor-parallel ``tp._all_reduce`` and
-    ``tp._all_gather`` (axes ``("model",)``).  A collective over one rank
-    runs nothing and is not recorded.  ``calls`` holds ``(kind, axes,
-    bytes)`` in order."""
+    buffer's bytes) and the tensor-parallel ``tp._all_reduce``,
+    ``tp._all_gather`` and ``tp._all_to_all`` (axes ``("model",)``; an
+    exchange records the bytes the rank sends, its own share included).
+    A collective over one rank runs nothing and is not recorded.
+    ``calls`` holds ``(kind, axes, bytes)`` in order."""
 
     def __init__(self):
         self.calls: list[tuple[str, tuple, int]] = []
@@ -316,6 +318,7 @@ class CollectiveRecorder:
         all_sum, all_gather = mesh_lib.Mesh.all_sum, mesh_lib.Mesh.all_gather
         a2a = moe._all_to_all
         tp_reduce, tp_gather = tp._all_reduce, tp._all_gather
+        tp_a2a = tp._all_to_all
 
         def rec_tp_reduce(t, grp, *op):
             rec.append(("all-reduce", ("model",), _nbytes(t)))
@@ -325,6 +328,10 @@ class CollectiveRecorder:
             rec.append(("all-gather", ("model",),
                         _nbytes(t) * dist.get_world_size(grp)))
             return tp_gather(t, grp, dim)
+
+        def rec_tp_a2a(t, grp, send, recv):
+            rec.append(("all-to-all", ("model",), _nbytes(t)))
+            return tp_a2a(t, grp, send, recv)
 
         def rec_sum(mesh, t, axes):
             if mesh.size(axes) > 1:
@@ -342,16 +349,19 @@ class CollectiveRecorder:
                 rec.append(("all-to-all", ("data",), _nbytes(x)))
             return a2a(x, group)
 
-        self._saved = (all_sum, all_gather, a2a, tp_reduce, tp_gather)
+        self._saved = (all_sum, all_gather, a2a, tp_reduce, tp_gather,
+                       tp_a2a)
         mesh_lib.Mesh.all_sum = rec_sum
         mesh_lib.Mesh.all_gather = rec_gather
         moe._all_to_all = rec_a2a
         tp._all_reduce, tp._all_gather = rec_tp_reduce, rec_tp_gather
+        tp._all_to_all = rec_tp_a2a
         return self
 
     def __exit__(self, *exc):
         (mesh_lib.Mesh.all_sum, mesh_lib.Mesh.all_gather,
-         moe._all_to_all, tp._all_reduce, tp._all_gather) = self._saved
+         moe._all_to_all, tp._all_reduce, tp._all_gather,
+         tp._all_to_all) = self._saved
         return False
 
     def bytes(self) -> dict:
@@ -400,10 +410,21 @@ def model_collective_calls(cfg, shape, mesh_shape: dict,
     and qk-norm scales' gradient sums; attention whose heads do not
     divide M: each split leaf gathered at use; the MLP and the shared
     experts: one sum each way; MoE experts split over their width: the
-    experts' outputs summed forward, the tokens' gradient backward; mamba
-    and mLSTM leaves gathered at use; each loss chunk's max, sum of
-    exponentials and gold logit forward and its input's gradient
-    backward.
+    experts' outputs summed forward, the tokens' gradient backward; the
+    Megatron mamba: the channel exchange of ``in_proj``'s output both
+    ways, ``x_proj``'s partial sum forward and its gradient's sum
+    backward (per scan chunk with ``ssm_remat``, whose checkpointed
+    chunks recompute once more), ``out_proj``'s sum forward and the
+    input's gradient sum backward; the Megatron mLSTM: the channel
+    exchange both ways, ``x`` gathered forward and its gradient summed
+    backward, the gates' sum forward (and backward when split over
+    heads), ``down``'s sum and the input's gradient sum; split over
+    ``dh``, also q, k and v gathered forward and q's and k's gradients
+    summed backward, per chunk the scores, reads and normalizers summed
+    forward and the replicated tensors' gradients summed backward (the
+    last chunk's state feeds nothing, so two of them), and ``y``'s
+    gradient gathered; each loss chunk's max, sum of exponentials and
+    gold logit forward and its input's gradient backward.
     """
     shape_of = dict(mesh_shape)
     M = shape_of.get("model", 1)
@@ -467,6 +488,39 @@ def model_collective_calls(cfg, shape, mesh_shape: dict,
             calls.extend([("all-to-all", ("data",),
                            exchange_bytes(cfg, n_tok, ep))] * (2 * times + 2))
 
+    def a2a(n, times=1):
+        calls.extend([("all-to-all", ("model",), n)] * times)
+
+    di, mi = cfg.d_inner, int(d * cfg.xlstm_proj_factor)
+
+    def mamba(b, S, a, times):
+        dbc = cfg.dt_rank + 2 * cfg.ssm_d_state
+        a2a(b * S * 2 * (di // M) * a, times + 1)
+        ar(b * S * d * a, times + 1)
+        if cfg.ssm_remat:                  # x_proj's sum in each chunk
+            c = min(ssm.SSM_CHUNK, S)
+            ar(b * c * dbc * a, -(-S // c) * (times + 2))
+        else:
+            ar(b * S * dbc * a, times + 1)
+
+    def mlstm(b, S, a, times):
+        n = b * S
+        a2a(n * 2 * (mi // M) * a, times + 1)
+        ag(n * mi * a, times)
+        ar(n * mi * a)                     # x's gradient
+        ar(n * 2 * H * 4, times + (1 if div(H) else 0))
+        ar(n * d * a, times + 1)
+        if not div(H):                     # split over dh
+            ag(n * mi * a, 3 * times)
+            ar(n * mi * a, 2)              # q's and k's gradients
+            c = min(xlstm.MLSTM_CHUNK, S)
+            n_ch = -(-S // c)
+            ar(b * c * c * H * 4, n_ch * (times + 1))
+            ar(b * c * mi * 4, n_ch * times + n_ch - 1)
+            ar(b * c * H * 4, n_ch * times)
+            ar(b * c * H * 4, n_ch + 2 * (n_ch - 1))
+            ag(n * mi * 4)                 # y's gradient
+
     if M > 1:
         if div(cfg.vocab):                            # the embedding
             ar(b * (S - P) * d * pb)
@@ -477,7 +531,6 @@ def model_collective_calls(cfg, shape, mesh_shape: dict,
         for _ in range(cfg.enc_layers):
             attn(b * cfg.enc_seq, eb, 1, False)
             mlp(b * cfg.enc_seq, eb, cfg.d_ff, 1)
-    di = cfg.d_inner
     for _ in range(cfg.n_units):
         if remat and div(d):
             ag(b * S * d * rb, fwd + 1)
@@ -490,18 +543,9 @@ def model_collective_calls(cfg, shape, mesh_shape: dict,
                     attn(b * S, ab, fwd, False,
                          kv=(b * cfg.enc_seq, eb))
             elif spec.kind == "mamba" and div(di):
-                dr, ds = cfg.dt_rank, cfg.ssm_d_state
-                for k in (d * 2 * di, cfg.ssm_conv * di, di, dr * di, di,
-                          di, di * (dr + 2 * ds), di * ds, di * d):
-                    ag(k * pb, fwd)
-            elif spec.kind == "mlstm":
-                mi = int(d * cfg.xlstm_proj_factor)
-                if div(2 * mi):
-                    ag(d * 2 * mi * pb, fwd)
-                if div(mi):
-                    ag(mi * mi * pb, 3 * fwd)
-                    ag(mi * d * pb, fwd)
-                    ag(mi * 2 * H * 4, fwd)
+                mamba(b, S, ab, fwd)
+            elif spec.kind == "mlstm" and div(mi):
+                mlstm(b, S, ab, fwd)
             if spec.ffn:
                 if spec.moe:
                     moe_ffn(b * S, fwd, last)
@@ -516,13 +560,174 @@ def model_collective_calls(cfg, shape, mesh_shape: dict,
     return calls
 
 
+def serve_collective_calls(cfg, shape, mesh_shape: dict) -> list:
+    """The collectives of one rank's prefill or decode in the serve steps
+    (``steps.make_prefill_step`` / ``make_decode_step``, the forward only,
+    tensor-parallel over ``model``), as ``(kind, axes, bytes)``; the
+    activations are in the parameters' dtype.
+
+    Prefill runs the train path's forms (the vocab-parallel embedding's
+    sum; the frontend projection gathered; the whisper encoder; attention
+    head-parallel, its output summed, K/V weights over head_dim gathered,
+    or every split leaf gathered when the heads do not divide the group;
+    the MLP's and the shared experts' sums, the experts' outputs summed,
+    the EP exchange), then per block:
+
+    * mamba: the channel exchange of ``in_proj``'s output, ``x_proj``'s
+      partial sum and ``out_proj``'s;
+    * the mLSTM: the channel exchange of ``up``'s output, ``x`` gathered,
+      the gates' partial sum and ``down``'s; split over ``dh``, also q, k
+      and v gathered and, per chunk, the scores, the read of ``C`` and
+      the normalizer summed;
+    * decode's attention against a head_dim-split cache: q regrouped from
+      the rank's heads (or gathered for RoPE or qk-norm from its
+      head_dim shard), k gathered for RoPE from its head_dim shard, the
+      partial scores ``(B, H, 1, cap)`` in float32 summed, the output
+      regrouped back to the rank's heads (for a ``wo`` over heads) and
+      summed after ``wo``; against kv heads: the output's sum;
+    * decode's sLSTM: its four states gathered;
+
+    and the logits gathered over vocab.
+    """
+    shape_of = dict(mesh_shape)
+    M = shape_of.get("model", 1)
+    if M == 1:
+        return []
+    b = steps.local_batch_size(shape.global_batch, shape_of)
+    decode = shape.kind == "decode"
+    S = 1 if decode else shape.seq_len
+    P = cfg.n_patches if cfg.frontend == "vision" and not decode else 0
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pdt = getattr(torch, cfg.param_dtype)
+    pb = _itemsize(pdt)
+    calls: list = []
+
+    def div(n):
+        return n % M == 0
+
+    def ar(n, times=1):
+        calls.extend([("all-reduce", ("model",), n)] * times)
+
+    def ag(n, times=1):
+        calls.extend([("all-gather", ("model",), n)] * times)
+
+    def a2a(n):
+        calls.append(("all-to-all", ("model",), n))
+
+    # wk / wv split over head_dim by param_spec
+    wk_hd = not div(KV) and not cfg.qk_norm and div(hd)
+
+    def attn_train(n_tok, a):
+        """The train path's forward (prefill, the encoder)."""
+        if div(H):
+            ar(n_tok * d * a)
+            if wk_hd:
+                ag(d * KV * hd * pb, 2)
+        elif div(hd):
+            ag(d * H * hd * pb)
+            if wk_hd:
+                ag(d * KV * hd * pb, 2)
+            ag(H * hd * d * pb)
+
+    def attn_decode(n_keys, rope_or_norm, k_hd):
+        if div(KV):                                # the rank's kv heads
+            ar(b * d * pb)
+        elif div(hd):                              # the rank's head_dim
+            if div(H):
+                a2a(b * (H // M) * hd * pb)
+            elif rope_or_norm:
+                ag(b * H * hd * pb)
+            if k_hd:
+                ag(b * KV * hd * pb)
+            ar(b * H * n_keys * 4)
+            if div(H):
+                a2a(b * H * (hd // M) * pb)
+            ar(b * d * pb)
+        elif div(H):
+            ar(b * d * pb)
+
+    def mlp(n_tok, width, a=pb):
+        if div(width):
+            ar(n_tok * d * a)
+
+    ep = shape_of.get("data", 1) if cfg.shard_experts_data and \
+        cfg.n_experts and cfg.n_experts % shape_of.get("data", 1) == 0 \
+        and shape_of.get("data", 1) > 1 else 1
+
+    def moe_ffn(n_tok):
+        ffe = cfg.moe_d_ff or cfg.d_ff
+        if div(ffe):
+            ar(cfg.n_experts * moe.capacity(cfg, n_tok) * d * pb)
+        if cfg.n_shared_experts:
+            mlp(n_tok, cfg.n_shared_experts * ffe)
+        if ep > 1:
+            calls.extend([("all-to-all", ("data",),
+                           exchange_bytes(cfg, n_tok, ep))] * 2)
+
+    if div(cfg.vocab):                              # the embedding
+        ar(b * (S - P) * d * pb)
+    if not decode:
+        if cfg.frontend in ("audio", "vision") and div(d):
+            ag(d * d * pb)
+        if cfg.is_encdec:
+            eb = _itemsize(torch.promote_types(torch.float32, pdt))
+            for _ in range(cfg.enc_layers):
+                attn_train(b * cfg.enc_seq, eb)
+                mlp(b * cfg.enc_seq, cfg.d_ff, eb)
+    cap = min(shape.seq_len, cfg.sliding_window) if cfg.sliding_window \
+        else shape.seq_len
+    di, mi = cfg.d_inner, int(d * cfg.xlstm_proj_factor)
+    n = b * S
+    for _ in range(cfg.n_units):
+        for spec in cfg.unit_pattern:
+            if spec.kind == "attn":
+                if decode:
+                    attn_decode(cap, True, wk_hd)
+                    if cfg.is_encdec:
+                        attn_decode(cfg.enc_seq, False, False)
+                else:
+                    attn_train(n, pb)
+                    if cfg.is_encdec:
+                        attn_train(n, pb)
+            elif spec.kind == "mamba" and div(di):
+                a2a(n * 2 * (di // M) * pb)
+                ar(n * (cfg.dt_rank + 2 * cfg.ssm_d_state) * pb)
+                ar(n * d * pb)
+            elif spec.kind == "mlstm" and div(mi):
+                a2a(n * 2 * (mi // M) * pb)
+                ag(n * mi * pb)
+                ar(n * 2 * H * 4)
+                if not div(H):                      # split over dh
+                    ag(n * mi * pb, 3)
+                    c = min(xlstm.MLSTM_CHUNK, S)
+                    for _ in range(-(-S // c)):
+                        ar(b * c * c * H * 4)
+                        ar(b * c * mi * 4)
+                        ar(b * c * H * 4)
+                ar(n * d * pb)
+            elif spec.kind == "slstm" and decode and div(d // H):
+                ag(b * d * 4, 4)
+            if spec.ffn:
+                if spec.moe:
+                    moe_ffn(n)
+                else:
+                    mlp(n, cfg.d_ff)
+    if div(cfg.vocab):                              # the logits
+        ag(b * cfg.vocab * pb)
+    return calls
+
+
 def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
                           aggregate: str = "sketch",
                           sketch_mode: str = "gathered",
                           weighted: bool = False, params=None) -> dict:
-    """The bytes one rank's train step moves by collective, by kind plus
+    """The bytes one rank's step moves by collective, by kind plus
     ``"total"``, from the configuration alone (what
-    :class:`CollectiveRecorder` records of ``steps.make_train_step``):
+    :class:`CollectiveRecorder` records of ``steps.make_train_step``, or
+    of the serve steps for a prefill or decode ``shape``: their
+    :func:`serve_collective_calls` and the logits gathered over the
+    client axes when the batch is split; ``fs_cfg`` and ``layout`` are
+    then not read).  A train step's:
 
     * the forward and backward's (:func:`model_collective_calls`): the
       tensor-parallel ones over ``model`` and the EP exchange, each MoE
@@ -551,6 +756,14 @@ def step_collective_bytes(cfg, shape, mesh_shape: dict, fs_cfg, layout,
     def size(axes):
         return math.prod(shape_of[a] for a in axes)
 
+    if shape.kind != "train":
+        calls = serve_collective_calls(cfg, shape, shape_of)
+        b = steps.local_batch_size(shape.global_batch, shape_of)
+        if b != shape.global_batch:               # the logits, whole
+            calls.append(("all-gather", client, shape.global_batch
+                          * cfg.vocab * _itemsize(getattr(
+                              torch, cfg.param_dtype))))
+        return _coll_dict(calls)
     agg = "sketch" if aggregate == "flat" else aggregate
     table = fs_cfg.rows * fs_cfg.cols * 4
     calls = model_collective_calls(cfg, shape, shape_of)

@@ -15,7 +15,9 @@ needed: that is the point of it, not a fallback.
 A train step runs as the mesh step does: its parameters split over
 ``model`` as ``param_spec`` places them, its forward and backward
 tensor-parallel and rematerialized, so the per-rank columns are those of
-that step.  The serving shapes keep the whole model on each model rank.
+that step.  The serving shapes run as the serve steps do: tensor-parallel
+on the rank's ``param_spec`` shard, against its ``cache_spec`` slice of
+the cache.
 
 For each combination this prints the rank's memory (parameters, gradients,
 the sketch's state, tables and kernel scratch, the activations' counted
@@ -23,11 +25,11 @@ peak), its FLOPs and bytes, the collective bytes and the three roofline
 terms against the H100's constants.  The sketch and the server step are
 not run: the kernels have no ``meta`` path (``kernels/ops.py`` raises for a
 ``meta`` tensor), so their FLOPs, bytes and scratch are analytic.  The
-collectives of a train step come from ``analysis.step_collective_bytes``;
-those of the forward and backward (tensor-parallel and EP) are also
-recorded and must equal its part of them
-(``analysis.model_collective_calls``).  The serving shapes' collectives
-are recorded.
+collectives of a step come from ``analysis.step_collective_bytes``;
+those of a train step's forward and backward (tensor-parallel and EP)
+are also recorded and must equal its part of them
+(``analysis.model_collective_calls``), and a serving step's recorded
+collectives must equal the formula's.
 
 ``xla_env`` has no counterpart: the fake world replaces
 ``force_host_devices(512)``, and no process is forked.
@@ -137,8 +139,7 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                                                      device="meta")
             full = steps.param_structs(cfg)
             n_params = transformer.param_count(full)
-            params = steps.local_params(full, cfg, mesh,
-                                        split_model=is_train)
+            params = steps.local_params(full, cfg, mesh)
             batch, batch_glob = steps.batch_structs(cfg, shape, mesh)
             cache = None
             if is_train:
@@ -174,11 +175,15 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
                         f"the forward and backward moved {rec.bytes()}; "
                         f"model_collective_calls says {want}")
             else:
-                coll = rec.bytes()
+                coll = analysis.step_collective_bytes(cfg, shape, mesh.shape,
+                                                      None, None)
+                if rec.bytes() != coll:
+                    raise RuntimeError(
+                        f"the serve step moved {rec.bytes()}; "
+                        f"step_collective_bytes says {coll}")
+            # the batch split over the clients, the layers over model
             n_split = shape.global_batch // steps.local_batch_size(
-                shape.global_batch, mesh)
-            if is_train:                    # the layers split over model
-                n_split *= mesh.shape.get("model", 1)
+                shape.global_batch, mesh) * mesh.shape.get("model", 1)
         dt = time.time() - t0
 
     n_active = analysis.active_params(cfg, n_params)

@@ -39,8 +39,11 @@ Expert-parallel archs (``cfg.shard_experts_data``) hold only their expert
 slice on each data rank (:func:`local_params`); routing goes through
 ``all_to_all`` (``moe.moe_apply_ep``), expert slices are sketched at their
 data shard's global offsets, and the sparse update is applied only to the
-chunks the rank owns.  The serve steps keep the whole model on every
-model rank (``local_params(split_model=False)``).
+chunks the rank owns.  The serve steps run tensor-parallel over the
+model group as well: a rank holds its ``param_spec`` shard of the
+parameters (:func:`local_params`) and its ``cache_spec`` slice of the
+cache (:func:`local_cache`, or ``transformer.init_cache(model=)``), and
+the logits come back whole on every rank.
 
 The reference's vectorized cohort step (``make_cohort_fn``) has its
 counterpart in the orchestrator (``fed.orchestrator`` materializes a
@@ -107,38 +110,47 @@ def build_layout(cfg: ArchConfig, mesh) -> layout_lib.ParamLayout:
                                    view_perms=perms, ep=ep)
 
 
-def _shard_axes(cfg: ArchConfig, mesh, split_model: bool = True):
+def _shard_axes(cfg: ArchConfig, mesh):
     """(leaf path -> data-sharded dim, leaf path -> model-sharded dim)."""
     _, ds_axes = ep_info(cfg, mesh)
-    ms_axes = sharding.model_shard_axes(param_structs(cfg), cfg, mesh) \
-        if split_model else {}
-    return ds_axes, ms_axes
+    return ds_axes, sharding.model_shard_axes(param_structs(cfg), cfg, mesh)
 
 
-def local_params(full: dict, cfg: ArchConfig, mesh, data_index=None,
-                 model_index=None, split_model: bool = True) -> dict:
-    """A rank's tree from the full one: each expert-parallel leaf cut to
-    data shard ``data_index``'s slice and each tensor-parallel leaf to
-    model shard ``model_index``'s (copies; ``split_model=False`` keeps
-    the model dims whole, as the serve steps take them), every other
-    leaf whole: the full tree's own tensor, which an in-place update of
-    the rank's tree (``apply_delta``) changes too.  What GSPMD places in
-    the reference."""
-    ds_axes, ms_axes = _shard_axes(cfg, mesh, split_model)
+def param_shard(cfg: ArchConfig, mesh, data_index=None,
+                model_index=None) -> Callable:
+    """``fn(path, leaf) -> leaf``: a leaf of the full tree cut to the
+    rank's part, as :func:`local_params` cuts it (a copy when it is cut,
+    else the leaf itself).  ``transformer.init_params(shard=)`` takes it,
+    so that a rank draws its shard without holding the whole tree."""
+    ds_axes, ms_axes = _shard_axes(cfg, mesh)
     shape = sharding.mesh_shape(mesh)
     d = mesh.index("data") if data_index is None else data_index
     m = mesh.index("model") if model_index is None else model_index
-    out = []
-    for path, leaf in layout_lib.flatten(full):
+
+    def fn(path: str, leaf: torch.Tensor) -> torch.Tensor:
         for ax, i, n in ((ds_axes.get(path), d, shape.get("data", 1)),
                          (ms_axes.get(path), m, shape.get("model", 1))):
             if ax is not None:
                 size = leaf.shape[ax] // n
                 leaf = leaf.narrow(ax, i * size, size).clone(
                     memory_format=torch.contiguous_format)
-        out.append(leaf)
-    return layout_lib.unflatten([p for p, _ in layout_lib.flatten(full)],
-                                out)
+        return leaf
+
+    return fn
+
+
+def local_params(full: dict, cfg: ArchConfig, mesh, data_index=None,
+                 model_index=None) -> dict:
+    """A rank's tree from the full one: each expert-parallel leaf cut to
+    data shard ``data_index``'s slice and each tensor-parallel leaf to
+    model shard ``model_index``'s (copies), every other leaf whole: the
+    full tree's own tensor, which an in-place update of the rank's tree
+    (``apply_delta``) changes too.  What GSPMD places in the
+    reference."""
+    fn = param_shard(cfg, mesh, data_index, model_index)
+    flat = layout_lib.flatten(full)
+    return layout_lib.unflatten([p for p, _ in flat],
+                                [fn(p, t) for p, t in flat])
 
 
 def assemble_params(parts: list[dict], cfg: ArchConfig, mesh) -> dict:
@@ -174,6 +186,60 @@ def gather_params(local: dict, cfg: ArchConfig, mesh: Mesh) -> dict:
         out.append(leaf)
     return layout_lib.unflatten([p for p, _ in layout_lib.flatten(local)],
                                 out)
+
+
+def local_cache(full: dict, cfg: ArchConfig, mesh, client_index=None,
+                model_index=None) -> dict:
+    """A rank's cache from the global one (``transformer.init_cache`` at
+    the global batch): each leaf cut to the rank's ``cache_spec`` slice,
+    its rows of the batch (client shard ``client_index``) and its part
+    of the dim split over ``model`` (shard ``model_index``); copies."""
+    shape = sharding.mesh_shape(mesh)
+    axes = sharding.cache_shard_axes(full, cfg, mesh)
+    c = mesh.client_index if client_index is None else client_index
+    m = mesh.index("model") if model_index is None else model_index
+    n_client = math.prod(shape[a] for a in sharding.batch_axes(shape))
+    out = []
+    for path, leaf in layout_lib.flatten(full):
+        for kind, i, n in (("client", c, n_client),
+                           ("model", m, shape.get("model", 1))):
+            ax = axes.get(path, {}).get(kind)
+            if ax is not None:
+                size = leaf.shape[ax] // n
+                leaf = leaf.narrow(ax, i * size, size)
+        out.append(leaf.clone(memory_format=torch.contiguous_format))
+    return layout_lib.unflatten([p for p, _ in layout_lib.flatten(full)],
+                                out)
+
+
+def assemble_cache(parts: list[dict], cfg: ArchConfig, mesh,
+                   batch: int | None = None) -> dict:
+    """The global cache of ``batch`` rows (default: the ranks' rows times
+    the client shards) from the ranks' caches in row-major order (client
+    shard ``i // M``, model shard ``i % M`` for a model axis of M ranks):
+    the inverse of :func:`local_cache`.  A leaf that no axis splits is
+    rank 0's."""
+    shape = sharding.mesh_shape(mesh)
+    n_model = shape.get("model", 1)
+    n_client = len(parts) // n_model
+    flat0 = dict(layout_lib.flatten(parts[0]))
+    n_rows = next(t.shape[2] for t in flat0.values() if t.dim() > 3)
+    cap = flat0["attn/pos_arr"].shape[-1] if "attn/pos_arr" in flat0 else 1
+    glob = transformer.init_cache(cfg, batch or n_rows * n_client, cap,
+                                  device="meta")
+    axes = sharding.cache_shard_axes(glob, cfg, mesh)
+    paths = list(flat0)
+    flat = [[t for _, t in layout_lib.flatten(tree)] for tree in parts]
+    leaves = []
+    for i, path in enumerate(paths):
+        ax = axes.get(path, {})
+        rows = [[flat[j + k][i] for k in range(n_model)]
+                for j in range(0, len(parts), n_model)]
+        per_client = [r[0] if "model" not in ax else torch.cat(r, ax["model"])
+                      for r in rows]
+        leaves.append(per_client[0] if "client" not in ax
+                      else torch.cat(per_client, ax["client"]))
+    return layout_lib.unflatten(paths, leaves)
 
 
 def local_batch(batch: dict, mesh: Mesh) -> dict:
@@ -235,12 +301,14 @@ def batch_structs(cfg: ArchConfig, shape: ShapeSpec,
 def cache_structs(cfg: ArchConfig, shape: ShapeSpec,
                   mesh) -> tuple[dict, dict]:
     """(the rank's cache, the global shapes): ``transformer.init_cache``
-    for ``shape.seq_len`` tokens in ``CACHE_DTYPE`` at the rank's batch on
-    ``meta`` (whole on every model rank: the port does not shard a cache),
-    and each leaf's global shape as ``path -> shape``."""
+    for ``shape.seq_len`` tokens in ``CACHE_DTYPE`` on ``meta`` as the
+    rank's ``cache_spec`` shard (its rows of the batch, its slice of the
+    dims split over ``model``), and each leaf's global shape as
+    ``path -> shape``."""
     b = local_batch_size(shape.global_batch, mesh)
-    local = transformer.init_cache(cfg, b, shape.seq_len, CACHE_DTYPE,
-                                   device="meta")
+    local = transformer.init_cache(
+        cfg, b, shape.seq_len, CACHE_DTYPE, device="meta",
+        model=sharding.mesh_shape(mesh).get("model", 1))
     full = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
                                   CACHE_DTYPE, device="meta")
     return local, {p: tuple(t.shape) for p, t in layout_lib.flatten(full)}
@@ -402,6 +470,8 @@ def make_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
 def _serve_step(cfg: ArchConfig, mesh: Mesh, step_fn, global_batch: int):
     has_ep, _ = ep_info(cfg, mesh)
     ep_group = mesh.group(("data",)) if has_ep else None
+    tp_group = mesh.group(("model",)) \
+        if mesh.shape.get("model", 1) > 1 else None
     split = local_batch_size(global_batch, mesh) != global_batch
 
     def gather(logits):
@@ -410,7 +480,8 @@ def _serve_step(cfg: ArchConfig, mesh: Mesh, step_fn, global_batch: int):
         return torch.cat(mesh.all_gather(logits, mesh.client_axes))
 
     def fn(params, inputs, cache):
-        with moe.expert_parallel(ep_group):
+        with torch.no_grad(), moe.expert_parallel(ep_group), \
+                tp.model_parallel(tp_group):
             logits, cache = step_fn(params, inputs, cfg, cache)
         return gather(logits), cache
 
@@ -421,8 +492,11 @@ def make_prefill_step(cfg: ArchConfig, shape: ShapeSpec,
                       mesh: Mesh) -> StepBundle:
     """``fn(params, batch, cache) -> (logits (B, V), cache)``: the global
     batch split over the client ranks when ``batch_spec`` shards it, each
-    rank's prefill on its slice into its own cache (sized with
-    :func:`local_batch_size`), the logits gathered over the clients."""
+    rank's prefill on its slice into its own cache, the logits gathered
+    over the clients.  Tensor-parallel over the model group: ``params``
+    is the rank's :func:`local_params` and ``cache`` its ``cache_spec``
+    slice (``transformer.init_cache(cfg, local_batch_size(B, mesh), S,
+    model=M)``, or :func:`local_cache` of a global one)."""
     inner = _serve_step(cfg, mesh, transformer.prefill, shape.global_batch)
     return StepBundle(
         fn=lambda params, batch, cache: inner(

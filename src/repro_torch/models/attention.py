@@ -22,17 +22,29 @@ overwrites keys that are still inside the window.
 reference always does: the backward recomputes a block's scores and
 probabilities instead of keeping every block's.
 
-Under ``tp.model_parallel`` (the train path of the mesh step) a self- or
-cross-attention whose ``wq`` and ``wo`` ``param_spec`` split over heads
-runs head-parallel: a rank computes its own heads, local head ``j`` being
+Under ``tp.model_parallel`` (the mesh step) a self- or cross-attention
+whose ``wq`` and ``wo`` ``param_spec`` split over heads runs
+head-parallel: a rank computes its own heads, local head ``j`` being
 global head ``h = rank * H_loc + j`` of kv head ``h // G``, and the
 output projection's partial sums are reduced over the group.  K/V split
 over kv heads are the rank's own; K/V that stay replicated (qk-norm) are
 computed whole and their weights' gradients summed over the group; K/V
-split over head_dim (the fallback) are stored as the shard and gathered
-at use.  When the heads do not divide the group, every leaf is gathered
-at use and the attention computed whole on each rank.  Prefill and
-decode run outside the context, on whole weights.
+weights split over head_dim (the fallback) are stored as the shard and
+gathered at use.  When the heads do not divide the group, every leaf is
+gathered at use and the attention computed whole on each rank.
+
+The serve path's cache holds the rank's ``cache_spec`` slice (self- and
+cross-attention alike): its kv heads, or every kv head's ``hd / m``
+slice when the group does not divide the kv heads.  Prefill runs the
+forms above over the fresh keys and values and writes the rank's slice.
+Decode against kv heads is head-parallel; against a head_dim slice it
+reads the cache where it lies: every rank forms its slice's partial
+scores for every query head (its queries regrouped from its heads to
+its slice by an ``all_to_all``, or gathered where RoPE or qk-norm needs
+the whole head), the partial scores ``(B, H, 1, cap)`` are summed over
+the group, and ``p . v`` on the slice gives the output's slice, which
+goes back to the rank's heads for ``wo`` (or meets ``wo``'s own
+head_dim shard).
 """
 
 from __future__ import annotations
@@ -63,30 +75,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-# -- cache --------------------------------------------------------------------
-
-def cache_init(cfg: ArchConfig, batch: int, capacity: int, n_units: int,
-               members: int, dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked KV cache for all attention members of all units: ``k`` and
-    ``v`` are ``(n_units, members, batch, capacity, KV, hd)``; ``pos_arr``
-    ``(n_units, members, capacity)`` holds each slot's absolute position
-    (-1 = empty)."""
-    shape = (n_units, members, batch, capacity, cfg.n_kv_heads, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos_arr": torch.full((n_units, members, capacity), -1,
-                              dtype=torch.int32, device=device),
-    }
-
-
 # -- core attention -----------------------------------------------------------
 
 def _block(qc, qp, kf, vf, k_pos, *, causal: bool, window: int,
-           prep, scale: float):
-    """One query block: (B, c, H, hd) from q (B, c, KV, G, hd)."""
+           prep, scale: float, partial: bool = False):
+    """One query block: (B, c, H, hd) from q (B, c, KV, G, hd);
+    ``partial``: q and k hold a slice of head_dim, and the scores are
+    summed over the model group."""
     B, c, KV, G, hd = qc.shape
-    s = torch.einsum("bqkgh,bskh->bkgqs", qc, kf) * scale
+    s = torch.einsum("bqkgh,bskh->bkgqs", qc, kf)
+    s = (tp.reduce_from(s) if partial else s) * scale
     ok = (k_pos[:, None, :] >= 0).expand(B, c, -1)        # (B,c,Sk)
     if causal:
         ok = ok & (k_pos[:, None, :] <= qp[:, :, None])
@@ -102,7 +100,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
             window: int, chunk: int,
             compute_dtype: str = "float32",
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, hd: int | None = None) -> torch.Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd), q_pos: (B,Sq), k_pos: (B,Sk).
 
     Chunked over Sq; query head ``h = kv * G + g``.  Slots with
@@ -110,12 +108,15 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v and the softmax to bf16 and multiplies in float32: the product
     of two bf16 values is exact in float32, so this is the reference's
     bf16 einsum with ``preferred_element_type=float32``.  ``remat``
-    checkpoints each block.
+    checkpoints each block.  ``hd``: the whole head_dim when q, k and v
+    hold the rank's slice of it (the scores are then summed over the
+    model group, and the output is the slice).
     """
-    B, Sq, H, hd = q.shape
+    B, Sq, H, dq = q.shape
     KV = k.shape[2]
     G = H // KV
-    scale = hd ** -0.5
+    partial = hd is not None and hd != dq
+    scale = (hd or dq) ** -0.5
     low = compute_dtype == "bfloat16"
 
     def prep(t):
@@ -126,9 +127,10 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = []
     for s0 in range(0, Sq, chunk):
         qc = qf[:, s0:s0 + chunk]
-        args = (qc.reshape(B, qc.shape[1], KV, G, hd),
+        args = (qc.reshape(B, qc.shape[1], KV, G, dq),
                 q_pos[:, s0:s0 + chunk], kf, vf, k_pos)
-        kw = dict(causal=causal, window=window, prep=prep, scale=scale)
+        kw = dict(causal=causal, window=window, prep=prep, scale=scale,
+                  partial=partial)
         if remat and torch.is_grad_enabled():
             outs.append(checkpoint.checkpoint(_block, *args, **kw,
                                               use_reentrant=False))
@@ -199,9 +201,16 @@ def _project(p: dict, x: torch.Tensor, cfg: ArchConfig, positions,
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if par and k.shape[2] == cfg.n_kv_heads:
-        k, v = _kv_for_heads(k, v, cfg)
     return q, k, v, par
+
+
+def _heads_kv(k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,
+              par: bool):
+    """The K/V (B, S, ., hd) a rank's query heads read: whole K/V cut to
+    the rank's kv heads when it is head-parallel, else as they are."""
+    if par and k.shape[2] == cfg.n_kv_heads:
+        return _kv_for_heads(k, v, cfg)
+    return k, v
 
 
 def _out_tp(p: dict, o: torch.Tensor, cfg: ArchConfig,
@@ -210,20 +219,6 @@ def _out_tp(p: dict, o: torch.Tensor, cfg: ArchConfig,
         return tp.reduce_from(_out(p, o))
     return _out({"wo": tp.whole(tp.whole(p["wo"], -3, cfg.n_heads), -2,
                                 cfg.hd)}, o)
-
-
-def _qkv(p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
-         use_rope: bool = True):
-    q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = layers.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = layers.einsum("bsd,dhk->bshk", x, p["wv"])
-    if cfg.qk_norm and "q_norm" in p:
-        q = layers.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = layers.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
 
 
 def _out(p: dict, o: torch.Tensor) -> torch.Tensor:
@@ -241,10 +236,25 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
     B, S, _ = x.shape
     positions = positions.expand(B, S)
     q, k, v, par = _project(p, x, cfg, positions, use_rope)
+    k, v = _heads_kv(k, v, cfg, par)
     o = _attend(q, k, v, positions, positions, causal=causal, window=window,
                 chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype,
                 remat=remat)
     return _out_tp(p, o, cfg, par)
+
+
+def _as_stored(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """K or V (B, S, KV, hd) cut to what the cache ``like`` (B, cap, ., .)
+    holds: the rank's kv heads or its slice of head_dim."""
+    for dim in (2, 3):
+        if t.shape[dim] != like.shape[dim]:
+            t = tp.shard_of(t, dim)
+    return t
+
+
+def _write(cache: torch.Tensor, slots: torch.Tensor,
+           t: torch.Tensor) -> None:
+    cache.index_copy_(1, slots, _as_stored(t, cache).to(cache.dtype))
 
 
 def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -252,24 +262,65 @@ def attn_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig,
                  pos_arr: torch.Tensor, *, window: int = 0):
     """Prefill: the full forward over the fresh float32 k and v, and the
     prompt's last ``min(S, capacity)`` positions written into the cache,
-    position ``p`` into slot ``p % capacity``.
+    position ``p`` into slot ``p % capacity``; under
+    ``tp.model_parallel`` the train path's forms, and the rank's slice of
+    k and v written.
 
     ``cache_k/v`` (B, cap, KV, hd) and ``pos_arr`` (cap,) are updated in
     place and returned: (out, cache_k, cache_v, pos_arr).
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(p, x, cfg, positions)
-    o = _attend(q, k, v, positions, positions, causal=True, window=window,
+    q, k, v, par = _project(p, x, cfg, positions, True)
+    ka, va = _heads_kv(k, v, cfg, par)
+    o = _attend(q, ka, va, positions, positions, causal=True, window=window,
                 chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype)
     cap = cache_k.shape[1]
     n = min(S, cap)
     kept = torch.arange(S - n, S, device=x.device)
     slots = kept % cap
-    cache_k.index_copy_(1, slots, k[:, S - n:].to(cache_k.dtype))
-    cache_v.index_copy_(1, slots, v[:, S - n:].to(cache_v.dtype))
+    _write(cache_k, slots, k[:, S - n:])
+    _write(cache_v, slots, v[:, S - n:])
     pos_arr.index_copy_(0, slots, kept.to(pos_arr.dtype))
-    return _out(p, o), cache_k, cache_v, pos_arr
+    return _out_tp(p, o, cfg, par), cache_k, cache_v, pos_arr
+
+
+def _norm_rope(t: torch.Tensor, cfg: ArchConfig, scale, positions):
+    if scale is not None:
+        t = layers.rmsnorm({"scale": scale}, t, cfg.norm_eps)
+    if positions is not None:
+        t = rope(t, positions, cfg.rope_theta)
+    return t
+
+
+def _hd_slice(x: torch.Tensor, w: torch.Tensor, heads: int,
+              cfg: ArchConfig, scale=None, positions=None) -> torch.Tensor:
+    """A projection (B, S, heads, hd / m) for every head at the rank's
+    slice of head_dim, after qk-norm (``scale``) and RoPE (``positions``)
+    where given: from the rank's heads by an ``all_to_all``, from ``w``'s
+    head_dim shard as it is (gathered first when norm or RoPE needs the
+    whole head), or cut from a whole ``w``'s output."""
+    t = layers.einsum("bsd,dhk->bshk", x, w)
+    if t.shape[2] != heads:                      # the rank's heads
+        return tp.regroup(_norm_rope(t, cfg, scale, positions), -1, 2)
+    if t.shape[3] != cfg.hd:                     # the rank's slice
+        if scale is None and positions is None:
+            return t
+        t = tp.gather(t, -1)
+    return tp.shard_of(_norm_rope(t, cfg, scale, positions), -1)
+
+
+def _out_hd(p: dict, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``wo`` over an output (B, S, H, hd / m) at the rank's slice of
+    head_dim: back to the rank's heads for a ``wo`` split over heads, or
+    against ``wo``'s own head_dim shard; the partial sums reduced."""
+    wo = p["wo"]
+    if wo.shape[-3] != cfg.n_heads:
+        o = tp.regroup(o, 2, -1)
+    elif wo.shape[-2] == cfg.hd:
+        raise ValueError("a head_dim-split cache needs wo split over heads "
+                         "or head_dim")
+    return tp.reduce_from(_out(p, o))
 
 
 def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -281,48 +332,79 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ArchConfig,
     (no host sync).  The token's k and v go into slot ``pos % capacity``
     (a ring when a window sized the cache, an append when the capacity is
     the whole sequence), then the query attends over the cache, the new
-    slot included.  ``cache_k/v`` and ``pos_arr`` are updated in place and
-    returned: (out, cache_k, cache_v, pos_arr); the caller advances
-    ``pos``.
+    slot included.  Under ``tp.model_parallel`` the cache holds the
+    rank's kv heads (head-parallel) or its slice of head_dim (partial
+    scores summed over the group).  ``cache_k/v`` and ``pos_arr`` are
+    updated in place and returned: (out, cache_k, cache_v, pos_arr); the
+    caller advances ``pos``.
     """
     B = x.shape[0]
     cap = cache_k.shape[1]
     positions = pos.reshape(1, 1).expand(B, 1)
-    q, k_new, v_new = _qkv(p, x, cfg, positions)
     slot = (pos % cap).reshape(1).long()
-    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
-    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    kw = dict(causal=True, window=window, chunk=cfg.attn_chunk,
+              compute_dtype=cfg.attn_compute_dtype)
+    if cache_k.shape[-1] != cfg.hd:              # K/V over head_dim
+        qn = p["q_norm"]["scale"] if "q_norm" in p else None
+        kn = p["k_norm"]["scale"] if "k_norm" in p else None
+        q = _hd_slice(x, p["wq"], cfg.n_heads, cfg, qn, positions)
+        _write(cache_k, slot, _hd_slice(x, p["wk"], cfg.n_kv_heads, cfg, kn,
+                                        positions))
+        _write(cache_v, slot, _hd_slice(x, p["wv"], cfg.n_kv_heads, cfg))
+        pos_arr.index_copy_(0, slot, pos.reshape(1).to(pos_arr.dtype))
+        o = _attend(q, cache_k, cache_v, positions, pos_arr.expand(B, cap),
+                    hd=cfg.hd, **kw)
+        return _out_hd(p, o, cfg), cache_k, cache_v, pos_arr
+    q, k_new, v_new, par = _project(p, x, cfg, positions, True)
+    _write(cache_k, slot, k_new)
+    _write(cache_v, slot, v_new)
     pos_arr.index_copy_(0, slot, pos.reshape(1).to(pos_arr.dtype))
-    o = _attend(q, cache_k, cache_v, positions, pos_arr.expand(B, cap),
-                causal=True, window=window, chunk=cfg.attn_chunk,
-                compute_dtype=cfg.attn_compute_dtype)
-    return _out(p, o), cache_k, cache_v, pos_arr
+    k, v = _heads_kv(cache_k, cache_v, cfg, par)
+    o = _attend(q, k, v, positions, pos_arr.expand(B, cap), **kw)
+    return _out_tp(p, o, cfg, par), cache_k, cache_v, pos_arr
 
 
 # -- cross-attention ----------------------------------------------------------
 
-def cross_kv(p: dict, enc_out: torch.Tensor):
-    """The encoder output's keys and values (B, S_enc, KV, hd), which the
-    serve path computes once a request and caches."""
-    return (layers.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            layers.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
-
-
-def _cross(q, k, v, cfg: ArchConfig, remat: bool = False) -> torch.Tensor:
+def _cross(q, k, v, cfg: ArchConfig, remat: bool = False,
+           hd: int | None = None) -> torch.Tensor:
     B, S = q.shape[:2]
     q_pos = torch.zeros((B, S), dtype=torch.int32, device=q.device)
     k_pos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=q.device)
     return _attend(q, k, v, q_pos, k_pos, causal=False, window=0,
                    chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype,
-                   remat=remat)
+                   remat=remat, hd=hd)
 
 
-def cross_attend(p: dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, d) attends over every one of the encoder's keys and
-    values ``k/v`` (B, S_enc, KV, hd): no mask, no RoPE."""
-    q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
-    return _out(p, _cross(q, k, v, cfg))
+def cross_prefill(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
+                  cfg: ArchConfig, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor) -> torch.Tensor:
+    """The serve path's cross-attention at prefill: the encoder output's
+    keys and values (B, S_enc, KV, hd) computed once a request, the
+    rank's slice of them written into ``cache_k/v`` (B, S_enc, ., .), and
+    x (B, S, d) attending over the fresh ones (the train path's forms)."""
+    q, k, v, par = _project(p, x, cfg, None, False, kv_x=enc_out)
+    cache_k.copy_(_as_stored(k, cache_k))
+    cache_v.copy_(_as_stored(v, cache_v))
+    k, v = _heads_kv(k, v, cfg, par)
+    return _out_tp(p, _cross(q, k, v, cfg), cfg, par)
+
+
+def cross_decode(p: dict, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """x: (B, S, d) attends over every one of the cached encoder keys and
+    values ``k/v`` (B, S_enc, ., .): no mask, no RoPE; head-parallel
+    against the rank's kv heads, or with partial scores against its
+    slice of head_dim."""
+    dt = torch.promote_types(x.dtype, p["wq"].dtype)
+    k, v = k.to(dt), v.to(dt)
+    if k.shape[-1] != cfg.hd:
+        q = _hd_slice(x, p["wq"], cfg.n_heads, cfg)
+        return _out_hd(p, _cross(q, k, v, cfg, hd=cfg.hd), cfg)
+    wq, _, _, _, _, par = _tp_weights(p, cfg)
+    q = layers.einsum("bsd,dhk->bshk", x, wq)
+    k, v = _heads_kv(k, v, cfg, par)
+    return _out_tp(p, _cross(q, k, v, cfg), cfg, par)
 
 
 def cross_attn_forward(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
@@ -331,4 +413,5 @@ def cross_attn_forward(p: dict, x: torch.Tensor, enc_out: torch.Tensor,
     output (B, S_enc, d), on the train path (tensor-parallel inside
     ``tp.model_parallel``)."""
     q, k, v, par = _project(p, x, cfg, None, False, kv_x=enc_out)
+    k, v = _heads_kv(k, v, cfg, par)
     return _out_tp(p, _cross(q, k, v, cfg, remat), cfg, par)

@@ -69,6 +69,8 @@ def embed(p: dict, tokens: torch.Tensor, vocab: int | None = None
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The logits; the rank's vocab columns when ``p["w"]`` is its shard
+    (the serve path gathers them over the model group)."""
     return matmul(x, p["w"])
 
 

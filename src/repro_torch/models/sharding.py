@@ -21,11 +21,14 @@ entry: a rank stores the ``data`` slice of an expert-parallel leaf
 (:func:`data_shard_axes`) and the ``model`` slice of a tensor-parallel
 one (:func:`model_shard_axes`), and its forward and backward run
 tensor-parallel over the model group (``models/tp.py``).  The ``model``
-entries also give the view permutations and the model-local sketch.  The
-reference's ``NamedSharding`` trees only serve its compiler and have no
-counterpart; its activation constraint has one in the train path's
-checkpointed units (``models/transformer.py``), which keep their saved
-input as the rank's slice of ``d``.
+entries also give the view permutations and the model-local sketch.  A
+serving rank stores its ``cache_spec`` slice of the decode cache
+(:func:`cache_shard_axes`, the counterpart of the reference's
+``cache_sharding``).  The reference's other ``NamedSharding`` trees only
+serve its compiler and have no counterpart; its activation constraint
+has one in the train path's checkpointed units
+(``models/transformer.py``), which keep their saved input as the rank's
+slice of ``d``.
 """
 
 from __future__ import annotations
@@ -242,3 +245,25 @@ def cache_spec(path: str, shape: tuple[int, ...], cfg: ArchConfig,
         if _div(shape[-1], mesh, "model"):
             dims[-1] = "model"
     return tuple(dims)
+
+
+def cache_shard_axes(cache: dict, cfg: ArchConfig,
+                     mesh) -> dict[str, dict[str, int]]:
+    """Leaf path -> ``{"model": dim, "client": dim}``, the dims of a
+    cache leaf that :func:`cache_spec` splits over ``model`` and over the
+    client axes (a kind absent when it splits none), read from the
+    spec alone.  ``cache``: the global tree (shapes only; ``meta`` will
+    do)."""
+    axes = {}
+    for path, leaf in layout_lib.flatten(cache):
+        dims = {}
+        for i, entry in enumerate(cache_spec(path, tuple(leaf.shape), cfg,
+                                             mesh)):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            if "model" in names:
+                dims["model"] = i
+            elif any(n in ("pod", "data") for n in names):
+                dims["client"] = i
+        if dims:
+            axes[path] = dims
+    return axes

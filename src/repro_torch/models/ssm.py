@@ -13,10 +13,21 @@ the O(1) recurrent update.
 Dtypes are the reference's: B, C and the scan in float32, ``y`` cast to
 the input's dtype before ``+ xc * D``.
 
-Under ``tp.model_parallel`` a rank stores the ``d_inner`` shard of each
-leaf ``param_spec`` splits over ``model``, and the train forward gathers
-the leaves at use and computes the block whole on every rank; its
-Megatron forward (the scan split over ``d_inner``) is not written yet.
+Under ``tp.model_parallel``, when the group divides ``d_inner``, a rank
+stores the ``d_inner`` shard of each leaf ``param_spec`` splits over
+``model`` and runs the block Megatron-style on its channels, in train,
+prefill and decode alike: ``in_proj``, the causal conv, ``dt_proj``,
+``dt_bias``, ``D`` and the selective scan (its state ``(B, d_inner / m,
+d_state)``, ``A_log``'s rows) are column-parallel with no traffic inside
+the scan; ``x_proj`` is row-parallel, its ``(B, S, dt_rank + 2
+d_state)`` partial summed over the group (and, since every rank reads
+the whole of dt, B and C, its gradient summed too), and ``out_proj`` is
+row-parallel, its output summed.  ``param_spec`` splits ``in_proj``'s
+``2 * d_inner`` columns as one dim, so a rank stores two blocks of
+``x`` or ``z`` that are not its channels; ``tp.channels`` exchanges the
+projection's ``(B, S, 2 d_inner / m)`` output so that each rank gets
+``x`` and ``z`` of its own channels.  Each leaf keeps the shard the
+sketch's ids and ``model_local`` are defined on.
 """
 
 from __future__ import annotations
@@ -42,10 +53,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
+def _split(p: dict, cfg: ArchConfig) -> bool:
+    """Whether ``p`` holds the rank's ``d_inner`` shard (the Megatron
+    block under ``tp.model_parallel``)."""
+    return p["out_proj"].shape[-2] != cfg.d_inner
+
+
 def _sel_params(p: dict, x_conv: torch.Tensor, cfg: ArchConfig):
     """(dt, Bm, Cm) selective params from the conv output. x_conv: (B,S,di)."""
     dr, ds = cfg.dt_rank, cfg.ssm_d_state
     dbc = layers.matmul(x_conv, p["x_proj"])
+    if _split(p, cfg):      # row-parallel; every rank reads the whole sum
+        dbc = tp.copy_to(tp.reduce_from(dbc))
     dt_in, Bm, Cm = torch.split(dbc, [dr, ds, ds], dim=-1)
     dt = F.softplus(layers.matmul(dt_in, p["dt_proj"]) + p["dt_bias"])
     return dt, Bm.to(torch.float32), Cm.to(torch.float32)
@@ -138,67 +157,47 @@ def _scan_chunked_fused(p: dict, xc: torch.Tensor, A, h0, cfg: ArchConfig):
 
 
 def _in_proj(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    xz = layers.matmul(x, p["in_proj"])
-    return torch.split(xz, [cfg.d_inner, cfg.d_inner], dim=-1)
+    """(x, z) of the rank's channels: column-parallel, regrouped by
+    ``tp.channels`` when ``in_proj`` is the rank's shard."""
+    if not _split(p, cfg):
+        xz = layers.matmul(x, p["in_proj"])
+        return torch.split(xz, [cfg.d_inner, cfg.d_inner], dim=-1)
+    # one cast, entering the parallel region in the promoted dtype
+    x = tp.copy_to(x.to(torch.promote_types(x.dtype, p["in_proj"].dtype)))
+    return tp.channels(layers.matmul(x, p["in_proj"]))
 
 
-def _out_proj(p: dict, y, xc, z, x: torch.Tensor) -> torch.Tensor:
+def _out_proj(p: dict, y, xc, z, x: torch.Tensor,
+              cfg: ArchConfig) -> torch.Tensor:
     y = y.to(x.dtype) + xc * p["D"]
-    return layers.matmul(y * F.silu(z), p["out_proj"])
+    out = layers.matmul(y * F.silu(z), p["out_proj"])
+    return tp.reduce_from(out) if _split(p, cfg) else out
 
 
-def _h0(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return torch.zeros(x.shape[0], cfg.d_inner, cfg.ssm_d_state,
-                       dtype=torch.float32, device=x.device)
-
-
-# the dim of each unit leaf that ``param_spec`` splits when the model
-# group divides d_inner
-_DI_DIMS = {"in_proj": -1, "conv_w": -1, "dt_proj": -1, "conv_b": -1,
-            "dt_bias": -1, "D": -1, "x_proj": 0, "A_log": 0, "out_proj": 0}
-
-
-def _whole(p: dict, cfg: ArchConfig) -> dict:
-    """The block's leaves whole: the shards gathered at use under
-    ``tp.model_parallel``."""
-    if not tp.splits(cfg.d_inner):
-        return p
-    return {k: tp.gather(v, _DI_DIMS[k]) if k in _DI_DIMS else v
-            for k, v in p.items()}
+def _h0(x: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The zero scan state (B, channels, d_state) of ``A``'s channels."""
+    return torch.zeros(x.shape[0], *A.shape, dtype=torch.float32,
+                       device=x.device)
 
 
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence mamba block. x: (B, S, d)."""
-    p = _whole(p, cfg)
     xin, z = _in_proj(p, x, cfg)
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
     A = p["A_log"].to(torch.float32)
     if cfg.ssm_remat:
-        y, _ = _scan_chunked_fused(p, xc, A, _h0(x, cfg), cfg)
+        y, _ = _scan_chunked_fused(p, xc, A, _h0(x, A), cfg)
     else:
         dt, Bm, Cm = _sel_params(p, xc, cfg)
-        y, _ = _scan_chunked(dt, Bm, Cm, xc, A, _h0(x, cfg))
-    return _out_proj(p, y, xc, z, x)
-
-
-def mamba_cache_init(cfg: ArchConfig, batch: int, n_units: int, members: int,
-                     dtype=torch.float32, device=None) -> dict:
-    """``conv`` (n_units, members, B, ssm_conv - 1, di) holds the last
-    inputs of the causal conv, ``ssm`` (n_units, members, B, di, d_state)
-    the float32 scan state."""
-    di = cfg.d_inner
-    return {
-        "conv": torch.zeros(n_units, members, batch, cfg.ssm_conv - 1, di,
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros(n_units, members, batch, di, cfg.ssm_d_state,
-                           dtype=torch.float32, device=device),
-    }
+        y, _ = _scan_chunked(dt, Bm, Cm, xc, A, _h0(x, A))
+    return _out_proj(p, y, xc, z, x, cfg)
 
 
 def mamba_decode(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
                  ssm_state: torch.Tensor, cfg: ArchConfig):
     """Single-token recurrent update. x: (B,1,d); states (B,K-1,di) and
-    (B,di,ds).  Returns (out, conv_state, ssm_state), the states new."""
+    (B,di,ds) (the rank's channels under ``tp.model_parallel``).  Returns
+    (out, conv_state, ssm_state), the states new."""
     xin, z = _in_proj(p, x, cfg)                                  # (B,1,di)
     window = torch.cat([conv_state, xin], dim=1)                  # (B,K,di)
     xc = layers.einsum("bkd,kd->bd", window, p["conv_w"]) + p["conv_b"]
@@ -210,7 +209,7 @@ def mamba_decode(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
     drive = (dtf * xc[:, 0].to(torch.float32))[..., None] * Bm[:, 0, None, :]
     h = decay * ssm_state + drive
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
-    return _out_proj(p, y, xc, z, x), window[:, 1:], h
+    return _out_proj(p, y, xc, z, x, cfg), window[:, 1:], h
 
 
 def mamba_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig):
@@ -222,8 +221,8 @@ def mamba_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig):
     xc = F.silu(_causal_conv(xin, p["conv_w"], p["conv_b"]))
     dt, Bm, Cm = _sel_params(p, xc, cfg)
     A = p["A_log"].to(torch.float32)
-    y, h_final = _scan_chunked(dt, Bm, Cm, xc, A, _h0(x, cfg),
+    y, h_final = _scan_chunked(dt, Bm, Cm, xc, A, _h0(x, A),
                                remat=cfg.ssm_remat)
     keep = cfg.ssm_conv - 1
     conv_state = F.pad(xin, (0, 0, max(0, keep - xin.shape[1]), 0))
-    return _out_proj(p, y, xc, z, x), conv_state[:, -keep:], h_final
+    return _out_proj(p, y, xc, z, x, cfg), conv_state[:, -keep:], h_final

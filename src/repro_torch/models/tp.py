@@ -13,19 +13,27 @@ the rank's shard of its weights:
   for a replicated leaf that each rank uses on its part of the work);
 * :func:`reduce_from` leaves it: the sum of the ranks' partial results
   forward, the identity backward;
-* :func:`gather` rebuilds a leaf stored as the rank's shard where it is
-  used whole (mamba, the mLSTM, K/V sharded over head_dim), and its
-  backward slices the rank's part of a gradient every rank holds whole;
+* :func:`gather` rebuilds a tensor held as the rank's shard where it is
+  used whole (K/V weights sharded over head_dim, the mLSTM's input to
+  its column-parallel projections), and its backward slices the rank's
+  part of a gradient every rank holds whole;
 * :func:`split` / :func:`gather` keep a checkpointed unit's saved input
   as the rank's slice of ``d`` (the counterpart of the reference's
   ``constrain_activations``): the slice forward and a gather backward,
-  and the gather at use with a slicing backward.
+  and the gather at use with a slicing backward;
+* :func:`regroup` moves a tensor split over one dim to a split over
+  another (an ``all_to_all``: K/V over head_dim against the query heads
+  in decode), and :func:`channels` gives a rank both halves of its
+  channels from a ``2 * width`` column split that stores them apart
+  (mamba's ``in_proj``, the mLSTM's ``up``); the backward of each is the
+  reverse exchange.
 
 With no group every operation is the identity and adds no node to the
 graph, so single-device code runs as before.  The collectives go through
-:func:`_all_reduce` and :func:`_all_gather`, which
+:func:`_all_reduce`, :func:`_all_gather` and :func:`_all_to_all`, which
 ``launch.analysis.CollectiveRecorder`` records as collectives over
-``("model",)``.
+``("model",)``.  The serve path's logits, split over vocab, are joined
+with :func:`gather`.
 """
 
 from __future__ import annotations
@@ -89,6 +97,18 @@ def _all_gather(t: torch.Tensor, grp, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+def _all_to_all(t: torch.Tensor, grp, send: list[int],
+                recv: list[int]) -> torch.Tensor:
+    """Rows of ``t`` (dim 0, grouped by destination: ``send[j]`` rows to
+    rank ``j``) exchanged over ``grp``; the result's rows are grouped by
+    source, ``recv[i]`` from rank ``i``."""
+    t = t.contiguous()
+    out = t.new_empty((sum(recv),) + tuple(t.shape[1:]))
+    dist.all_to_all_single(out, t, output_split_sizes=recv,
+                           input_split_sizes=send, group=grp)
+    return out
+
+
 def _slice(t: torch.Tensor, grp, dim: int) -> torch.Tensor:
     n = t.shape[dim] // dist.get_world_size(grp)
     return t.narrow(dim, dist.get_rank(grp) * n, n).contiguous()
@@ -140,6 +160,17 @@ class _Split(torch.autograd.Function):
         return _all_gather(g, ctx.grp, ctx.dim), None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp, send, recv):
+        ctx.grp, ctx.send, ctx.recv = grp, send, recv
+        return _all_to_all(x, grp, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.grp, ctx.recv, ctx.send), None, None, None
+
+
 def copy_to(x: torch.Tensor) -> torch.Tensor:
     """Enter a parallel region: identity forward, the gradient summed over
     the group backward."""
@@ -162,6 +193,54 @@ def split(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The rank's slice of ``x`` along ``dim`` (a copy); the backward
     gathers the ranks' slices of the gradient."""
     return x if size() == 1 else _Split.apply(x, group(), dim % x.dim())
+
+
+def regroup(x: torch.Tensor, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``x``'s ``split_dim`` cut into ``size()`` equal pieces, piece ``j``
+    sent to rank ``j``; the pieces a rank receives are joined along
+    ``cat_dim`` in rank order.  A tensor split over ``cat_dim`` becomes
+    one split over ``split_dim`` (an ``all_to_all``)."""
+    m = size()
+    if m == 1:
+        return x
+    split_dim, cat_dim = split_dim % x.dim(), cat_dim % x.dim()
+    n = x.shape[split_dim] // m
+    parts = x.unflatten(split_dim, (m, n)).movedim(split_dim, 0)
+    got = _Exchange.apply(parts, group(), [1] * m, [1] * m)
+    # got: (m, ...) with dim ``split_dim + 1`` of length n; source first
+    got = got.movedim(0, cat_dim)
+    return got.flatten(cat_dim, cat_dim + 1)
+
+
+def channels(xz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A rank's two halves of its channels from the ``(..., 2 * w / m)``
+    output of a column-parallel projection whose ``2 * w`` columns
+    ``param_spec`` split as one dim (``[x | z]``: the rank stores blocks
+    ``2r`` and ``2r + 1`` of the ``2m`` blocks of ``w / m`` columns, so at
+    ``m = 2`` rank 0 holds all of ``x`` and rank 1 all of ``z``).  Block
+    ``b`` belongs to rank ``b % m``; the exchange leaves rank ``r`` with
+    ``x``'s block ``r`` and ``z``'s block ``r``: ``(x_r, z_r)``, each
+    ``(..., w / m)``.  Without a group: the two halves of ``xz``."""
+    m = size()
+    n = xz.shape[-1] // 2
+    if m == 1:
+        return xz[..., :n], xz[..., n:]
+    r = rank()
+    blocks = xz.unflatten(-1, (2, n)).movedim(-2, 0)          # (2, ..., n)
+    send = [int(j in ((2 * r) % m, (2 * r + 1) % m)) for j in range(m)]
+    recv = [int(i in (r // 2, (m + r) // 2)) for i in range(m)]
+    got = _Exchange.apply(blocks, group(), send, recv)        # (2, ..., n)
+    return got[0], got[1]
+
+
+def shard_of(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The rank's slice of ``x`` along ``dim`` (a view, no gradient
+    rule: the serve path's cache writes)."""
+    m = size()
+    if m == 1:
+        return x
+    n = x.shape[dim] // m
+    return x.narrow(dim, rank() * n, n)
 
 
 def all_max(x: torch.Tensor) -> torch.Tensor:

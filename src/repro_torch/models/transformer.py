@@ -41,6 +41,12 @@ Entry points:
   and ``frames`` (audio) or ``patches`` (vision)
 * ``init_cache``, ``prefill`` — forward over the prompt, filling the cache
 * ``decode_step`` — one token against the cache, with no host sync
+
+Inside ``tp.model_parallel`` the serve path runs tensor-parallel too:
+each rank holds its ``param_spec`` shard of the parameters and its
+``cache_spec`` slice of the cache (``init_cache(model=)``), the blocks
+run their Megatron forms, and the logits, split over vocab, are gathered
+over the group.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from torch.utils import checkpoint
 
 from repro_torch.core import layout as layout_lib
 
-from . import attention, layers, moe, ssm, tp, xlstm
+from . import attention, layers, moe, sharding, ssm, tp, xlstm
 from .config import ArchConfig, LayerSpec
 
 KINDS = ("attn", "mamba", "mlstm", "slstm")
@@ -94,12 +100,19 @@ def _sinusoid(seq: int, d: int, device=None) -> torch.Tensor:
 
 # -- init ---------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ArchConfig, seed: int = 0, device=None,
+                shard=None) -> dict:
     """Random parameters from ``torch.Generator(seed)`` on ``device``,
     drawn in float32 and cast to ``cfg.param_dtype`` (MoE routers and the
     xLSTM gate weights stay float32, as in the reference), at the
     reference's scales and constants.  On the ``meta`` device nothing is
     drawn: the tree's shapes alone (a parameter count at full width).
+
+    ``shard``: ``fn(path, leaf) -> leaf`` (``steps.param_shard``) applied
+    to each member's leaves as soon as the member is drawn, and to the
+    other leaves as each is drawn: a rank's tree, the same numbers as the
+    whole tree's parts, with no more of the whole tree alive at once than
+    one member.
 
     An encoder-decoder also has ``enc`` (``enc_layers`` attention-only
     units with a dense FFN and no qk-norm, and a final norm) and an
@@ -183,6 +196,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
     blocks = {"attn": attn, "mamba": mamba, "mlstm": mlstm, "slstm": slstm}
 
+    def cut(prefix: str, tree: dict) -> dict:
+        if shard is None:
+            return tree
+        flat = layout_lib.flatten(tree, prefix)
+        return layout_lib.unflatten([p[len(prefix) + 1:] for p, _ in flat],
+                                    [shard(p, t) for p, t in flat])
+
     def member(spec: LayerSpec):
         p = {"norm1": {"scale": full((n, d), 1.0)},
              spec.kind: blocks[spec.kind]()}
@@ -198,23 +218,26 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
         return p
 
     params = {
-        "embed": {"table": normal((cfg.vocab, d), 0.02)},
-        "units": {f"m{i}": member(spec)
+        "embed": cut("embed", {"table": normal((cfg.vocab, d), 0.02)}),
+        "units": {f"m{i}": cut(f"units/m{i}", member(spec))
                   for i, spec in enumerate(cfg.unit_pattern)},
         "final_norm": {"scale": full((d,), 1.0)},
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = {"w": normal((d, cfg.vocab), d ** -0.5)}
+        params["unembed"] = cut("unembed", {
+            "w": normal((d, cfg.vocab), d ** -0.5)})
     if cfg.is_encdec:
         ne = cfg.enc_layers
-        params["enc"] = {
+        params["enc"] = cut("enc", {
             "units": {"m0": {"norm1": {"scale": full((ne, d), 1.0)},
                              "attn": attn(ne, qk_norm=False),
                              "norm2": {"scale": full((ne, d), 1.0)},
                              "mlp": mlp(cfg.d_ff, cfg.act, ne)}},
-            "final_norm": {"scale": full((d,), 1.0)}}
+            "final_norm": {"scale": full((d,), 1.0)}})
     if cfg.frontend in ("audio", "vision"):
-        params["frontend_proj"] = normal((d, d), d ** -0.5)
+        w = normal((d, d), d ** -0.5)
+        params["frontend_proj"] = w if shard is None else \
+            shard("frontend_proj", w)
     return params
 
 
@@ -402,7 +425,7 @@ def param_count(params: dict) -> int:
 # -- serving ------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, model: int = 1) -> dict:
     """Decode cache sized for ``seq_len`` tokens of context, the
     reference's tree: ``pos`` (0-d int32), and for each kind of member in
     the unit a stack ``(n_units, members of the kind, ...)``:
@@ -412,40 +435,56 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     encoder-decoder's ``xattn.{k, v}`` ``(n_units, attention members, B,
     enc_seq, KV, hd)`` in ``dtype``, the encoder's keys and values that
     ``prefill`` fills.  A vision model's prompt holds its patch prefix
-    too: ``seq_len`` counts it."""
+    too: ``seq_len`` counts it.
+
+    ``model``: the size of the mesh's model axis; each leaf is then the
+    one rank's ``sharding.cache_spec`` slice, the dims it splits over
+    ``model`` cut by ``model`` (``batch`` is the rank's already)."""
     _check_kinds(cfg)
     counts = _kind_counts(cfg)
     n = cfg.n_units
-    cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    shapes: dict = {"pos": ((), torch.int32, 0)}
     if "attn" in counts:
         cap = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
             else seq_len
-        cache["attn"] = attention.cache_init(cfg, batch, cap, n,
-                                             counts["attn"], dtype, device)
+        kv = (n, counts["attn"], batch, cap, cfg.n_kv_heads, cfg.hd)
+        shapes["attn/k"] = shapes["attn/v"] = (kv, dtype, 0.0)
+        shapes["attn/pos_arr"] = ((n, counts["attn"], cap), torch.int32, -1)
     if "mamba" in counts:
-        cache["mamba"] = ssm.mamba_cache_init(cfg, batch, n, counts["mamba"],
-                                              device=device)
+        di = cfg.d_inner
+        shapes["mamba/conv"] = ((n, counts["mamba"], batch, cfg.ssm_conv - 1,
+                                 di), torch.float32, 0.0)
+        shapes["mamba/ssm"] = ((n, counts["mamba"], batch, di,
+                                cfg.ssm_d_state), torch.float32, 0.0)
     if "mlstm" in counts:
         H = cfg.n_heads
         dh = xlstm.mlstm_inner(cfg) // H
         shape = (n, counts["mlstm"], batch, H, dh)
-        cache["mlstm"] = {
-            "C": torch.zeros(shape + (dh,), dtype=torch.float32,
-                             device=device),
-            "n": torch.zeros(shape, dtype=torch.float32, device=device)}
+        shapes["mlstm/C"] = (shape + (dh,), torch.float32, 0.0)
+        shapes["mlstm/n"] = (shape, torch.float32, 0.0)
     if "slstm" in counts:
         H = cfg.n_heads
         shape = (n, counts["slstm"], batch, H, cfg.d_model // H)
-        cache["slstm"] = {
-            k: torch.full(shape, -1e9 if k == "m" else 0.0,
-                          dtype=torch.float32, device=device)
-            for k in ("h", "c", "n", "m")}
+        for k in ("h", "c", "n", "m"):
+            shapes[f"slstm/{k}"] = (shape, torch.float32,
+                                    -1e9 if k == "m" else 0.0)
     if cfg.is_encdec:
         shape = (n, counts["attn"], batch, cfg.enc_seq, cfg.n_kv_heads,
                  cfg.hd)
-        cache["xattn"] = {k: torch.zeros(shape, dtype=dtype, device=device)
-                          for k in ("k", "v")}
-    return cache
+        shapes["xattn/k"] = shapes["xattn/v"] = (shape, dtype, 0.0)
+    axes = {}
+    if model > 1:
+        axes = sharding.cache_shard_axes(
+            layout_lib.unflatten(list(shapes), [
+                torch.empty(s, device="meta") for s, _, _ in shapes.values()]),
+            cfg, {"model": model})
+    leaves = []
+    for path, (shape, dt, fill) in shapes.items():
+        shape = list(shape)
+        if "model" in axes.get(path, {}):
+            shape[axes[path]["model"]] //= model
+        leaves.append(torch.full(shape, fill, dtype=dt, device=device))
+    return layout_lib.unflatten(list(shapes), leaves)
 
 
 def _serve_member(kind: str, p: dict, h: torch.Tensor, cfg: ArchConfig,
@@ -482,6 +521,9 @@ def _serve_member(kind: str, p: dict, h: torch.Tensor, cfg: ArchConfig,
     names = ("h", "c", "n", "m")
     if pos is None:
         out, new = xlstm.slstm_forward(p, h, cfg, return_state=True)
+        # computed whole; the cache holds the rank's slice of the last dim
+        new = tuple(v if v.shape == st[k].shape else tp.shard_of(v, -1)
+                    for k, v in zip(names, new))
     else:
         out, new = xlstm.slstm_decode(p, h, tuple(st[k] for k in names), cfg)
     for k, v in zip(names, new):
@@ -492,23 +534,22 @@ def _serve_member(kind: str, p: dict, h: torch.Tensor, cfg: ArchConfig,
 def _serve_cross(p: dict, h: torch.Tensor, cfg: ArchConfig, st: dict,
                  enc_out) -> torch.Tensor:
     """Cross-attention on the serve path against ``st`` (this member's
-    ``xattn`` views): prefill computes the encoder's keys and values from
-    ``enc_out``, writes them into the cache and attends over the fresh
-    ones; decode (``enc_out`` None) attends over the cached ones."""
+    ``xattn`` views, the rank's ``cache_spec`` slice under
+    ``tp.model_parallel``): prefill computes the encoder's keys and
+    values from ``enc_out``, writes them into the cache and attends over
+    the fresh ones; decode (``enc_out`` None) attends over the cached
+    ones."""
     if enc_out is not None:
-        k, v = attention.cross_kv(p, enc_out)
-        st["k"].copy_(k)
-        st["v"].copy_(v)
-        return attention.cross_attend(p, h, k, v, cfg)
-    dt = torch.promote_types(h.dtype, p["wq"].dtype)
-    return attention.cross_attend(p, h, st["k"].to(dt), st["v"].to(dt), cfg)
+        return attention.cross_prefill(p, h, enc_out, cfg, st["k"], st["v"])
+    return attention.cross_decode(p, h, st["k"], st["v"], cfg)
 
 
 def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
            pos, enc_out=None) -> torch.Tensor:
     """Every unit of the serve path: a prefill when ``pos`` is None, else
     one decode step at position ``pos``.  Returns the last position's
-    logits (B, V)."""
+    logits (B, V), gathered over the model group when the unembedding is
+    the rank's vocab shard."""
     kmi = _kind_member_index(cfg)
     for u in range(cfg.n_units):
         for i, spec in enumerate(cfg.unit_pattern):
@@ -522,7 +563,9 @@ def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
                 x = x + _serve_cross(mp["xattn"], hx, cfg, st, enc_out)
             x, _ = _ffn(mp, spec, x, cfg)
     h = layers.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return layers.unembed(_unembed_p(params), h)[:, 0]
+    un = _unembed_p(params)
+    logits = layers.unembed(un, h)[:, 0]
+    return logits if un["w"].shape[-1] == cfg.vocab else tp.gather(logits, -1)
 
 
 def prefill(params: dict, batch: dict, cfg: ArchConfig,
@@ -551,7 +594,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     a token.  The cache is updated in place (and returned), ``pos``
     advanced by one.
     """
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(params["embed"], tokens, cfg.vocab)
     pos = cache["pos"]
     logits = _serve(params, x, cfg, cache, pos)
     cache["pos"] = pos + 1

@@ -20,11 +20,30 @@ Both blocks carry their own 2x up- and down-projections; xLSTM units have
 no FFN.  ``w_if``, ``b_if`` and ``b`` are float32 whatever the parameter
 dtype, as in the reference.
 
-Under ``tp.model_parallel`` a rank stores the shard of each mLSTM leaf
-``param_spec`` splits over ``model`` (``up``, ``wq``, ``wk``, ``wv`` by
-columns, ``down`` and ``w_if`` by rows), and the train forward gathers
-them at use and computes the block whole on every rank; its Megatron
-forward is not written yet.  The sLSTM is replicated.
+Under ``tp.model_parallel``, when the group divides the mLSTM's inner
+width ``di``, a rank stores the shard of each mLSTM leaf ``param_spec``
+splits over ``model`` (``up``, ``wq``, ``wk``, ``wv`` by columns,
+``down`` and ``w_if`` by rows) and runs the block Megatron-style, in
+train, prefill and decode alike.  ``up`` splits its ``2 * di`` columns as
+one dim, as mamba's ``in_proj`` does: ``tp.channels`` regroups its
+output so a rank holds ``x`` and ``z`` of its own channels.  ``wq``,
+``wk`` and ``wv`` read all of ``x`` (gathered) and give the rank's
+columns; ``w_if`` is row-parallel (the gates' partial sums reduced) and
+``down`` too.  The state ``(C, n)`` is split as ``cache_spec`` splits
+it:
+
+* over heads when the group divides ``H``: the rank's columns are its
+  heads, and the chunkwise scan runs on them with no traffic;
+* over the key dim of ``C`` (``dh``) otherwise: q and k are gathered and
+  a rank keeps its ``dh / m`` slice of every head, v and the gates whole;
+  the scores ``q . k``, the read ``q . C`` and the normalizer ``n . q``
+  are partial sums over the slice, reduced over the group, and the rest
+  of the chunk is computed whole on every rank (replicated tensors enter
+  the slice's part through ``tp.copy_to``, so their gradients are
+  summed).
+
+The sLSTM is replicated and computed whole; its serve state is stored as
+the rank's slice of its last dim, gathered at use and sliced back.
 """
 
 from __future__ import annotations
@@ -60,9 +79,20 @@ def _mlstm_qkvif(p: dict, xin: torch.Tensor, cfg: ArchConfig):
     return q, k, v, torch.sigmoid(gif[..., :H]), torch.sigmoid(gif[..., H:])
 
 
-def _mlstm_chunk(C, n, qk, kk, vk, ik, fk):
+def _mlstm_chunk(C, n, qk, kk, vk, ik, fk, part: bool = False):
     """One chunk: state (C (B,H,dh,dh), n (B,H,dh)), inputs (B,c,H,...).
-    Returns (C_new, n_new, y (B,c,H,dh))."""
+    Returns (C_new, n_new, y (B,c,H,dh)).
+
+    ``part``: q, k, C and n hold the rank's slice of the key dim and v
+    and the gates are whole (the dh-split mLSTM): the three sums over the
+    key dim are reduced over the model group, and the replicated tensors
+    that meet the slice enter through ``tp.copy_to``."""
+    def red(t):
+        return tp.reduce_from(t) if part else t
+
+    def enter(t):
+        return tp.copy_to(t) if part else t
+
     c = qk.shape[1]
     qf, kf, vf = (t.to(torch.float32) for t in (qk, kk, vk))
     F_ = torch.cumsum(torch.log(fk.clamp(min=1e-6)), dim=1)  # (B,c,H)
@@ -73,14 +103,16 @@ def _mlstm_chunk(C, n, qk, kk, vk, ik, fk):
     mask = torch.tril(torch.ones(c, c, dtype=torch.bool, device=qk.device))
     w = d_mat.masked_fill(~mask[None, :, :, None], float("-inf")).exp() \
         * ik[:, None, :, :]
-    s = torch.einsum("bthd,bjhd->btjh", qf, kf) * w
+    s = red(torch.einsum("bthd,bjhd->btjh", qf, kf)) * w
     y_intra = torch.einsum("btjh,bjhd->bthd", s, vf)
-    n_intra = torch.einsum("btjh,bjhd->bthd", w, kf)
     # inter-chunk: y_t += exp(F_t) q_t . C_prev
     eF = torch.exp(F_)
-    y_inter = torch.einsum("bthd,bhde->bthe", qf * eF[..., None], C)
+    w, eF, vf, ik, F_ = (enter(t) for t in (w, eF, vf, ik, F_))
+    n_intra = torch.einsum("btjh,bjhd->bthd", w, kf)
+    y_inter = red(torch.einsum("bthd,bhde->bthe", qf * eF[..., None], C))
     n_all = n[:, None] * eF[..., None] + n_intra
-    denom = torch.einsum("bthd,bthd->bth", n_all, qf).abs().clamp(min=1.0)
+    denom = red(torch.einsum("bthd,bthd->bth", n_all, qf)).abs().clamp(
+        min=1.0)
     y = (y_intra + y_inter) / denom[..., None]
     # the state at the end of the chunk
     Ftot = F_[:, -1]                                          # (B,H)
@@ -91,9 +123,10 @@ def _mlstm_chunk(C, n, qk, kk, vk, ik, fk):
     return C_new, n_new, y
 
 
-def _mlstm_scan(q, k, v, i_g, f_g, C0, n0):
+def _mlstm_scan(q, k, v, i_g, f_g, C0, n0, part: bool = False):
     """Chunkwise mLSTM. q/k/v: (B,S,H,dh); gates (B,S,H); C0 (B,H,dh,dh).
-    Returns (y (B,S,H,dh) float32, C, n): the state after step S."""
+    Returns (y (B,S,H,dh) float32, C, n): the state after step S.
+    ``part``: :func:`_mlstm_chunk`'s."""
     S = q.shape[1]
     chunk = min(MLSTM_CHUNK, S)
     pad = (-S) % chunk
@@ -105,32 +138,82 @@ def _mlstm_scan(q, k, v, i_g, f_g, C0, n0):
     C, n, ys = C0, n0, []
     for s0 in range(0, S + pad, chunk):
         C, n, y = _mlstm_chunk(C, n, *(a[:, s0:s0 + chunk]
-                                       for a in (q, k, v, i_g, f_g)))
+                                       for a in (q, k, v, i_g, f_g)),
+                               part=part)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :S], C, n
+
+
+def _zero_state(x: torch.Tensor, H: int, dk: int, dv: int):
+    B = x.shape[0]
+    return (torch.zeros(B, H, dk, dv, dtype=torch.float32, device=x.device),
+            torch.zeros(B, H, dk, dtype=torch.float32, device=x.device))
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, state=None,
                   return_state: bool = False):
     """mLSTM block over x (B, S, d) from ``state`` = (C, n) (zeros if
-    None); with ``return_state``: (out, (C, n))."""
+    None; the rank's ``cache_spec`` slice under ``tp.model_parallel``);
+    with ``return_state``: (out, (C, n))."""
     di, H = mlstm_inner(cfg), cfg.n_heads
     dh = di // H
     B, S, _ = x.shape
-    p = {k: tp.whole(v, -1, 2 * di) if k == "up" else
-         tp.whole(v, -1, di) if k in ("wq", "wk", "wv") else
-         tp.whole(v, 0, di) if k in ("down", "w_if") else v
-         for k, v in p.items()}
+    if p["down"].shape[-2] != di:
+        return _mlstm_tp(p, x, cfg, state, return_state)
     xin, z = torch.split(layers.matmul(x, p["up"]), [di, di], dim=-1)
     q, k, v, i_g, f_g = _mlstm_qkvif(p, xin, cfg)
-    if state is None:
-        C0 = torch.zeros(B, H, dh, dh, dtype=torch.float32, device=x.device)
-        n0 = torch.zeros(B, H, dh, dtype=torch.float32, device=x.device)
-    else:
-        C0, n0 = state
+    C0, n0 = _zero_state(x, H, dh, dh) if state is None else state
     y, C_f, n_f = _mlstm_scan(q, k, v, i_g, f_g, C0, n0)
     y = y.reshape(B, S, di).to(x.dtype)
     out = layers.matmul(y * F.silu(z), p["down"])
+    return (out, (C_f, n_f)) if return_state else out
+
+
+def _mlstm_tp(p: dict, x: torch.Tensor, cfg: ArchConfig, state,
+              return_state: bool):
+    """The Megatron mLSTM on the rank's shard (module docstring)."""
+    di, H = mlstm_inner(cfg), cfg.n_heads
+    dh = di // H
+    B, S, _ = x.shape
+    m, r = tp.size(), tp.rank()
+    # one cast, entering the parallel region in the promoted dtype
+    xp = tp.copy_to(x.to(torch.promote_types(x.dtype, p["up"].dtype)))
+    xin_r, z = tp.channels(layers.matmul(xp, p["up"]))
+    xin = tp.copy_to(tp.gather(xin_r, -1))      # wq/wk/wv read all of x
+    gif = tp.reduce_from(xin_r.to(torch.float32) @ p["w_if"])
+
+    def cols(w):                                # the rank's columns
+        return layers.matmul(xin, w)
+
+    if tp.splits(H):                            # the rank's heads
+        hn = H // m
+        q, k, v = (cols(p[w]).reshape(B, S, hn, dh) for w in ("wq", "wk",
+                                                              "wv"))
+        gif = tp.copy_to(gif + p["b_if"])       # read on the rank's heads
+        i_g = torch.sigmoid(gif[..., r * hn:(r + 1) * hn])
+        f_g = torch.sigmoid(gif[..., H + r * hn:H + (r + 1) * hn])
+        dk, part = dh, False
+    elif tp.splits(dh):                         # the rank's slice of dh
+        def whole(w):
+            return tp.gather(cols(p[w]), -1).reshape(B, S, H, dh)
+        dk = dh // m
+        q, k = (tp.copy_to(whole(w)).narrow(-1, r * dk, dk)
+                for w in ("wq", "wk"))
+        v = whole("wv")
+        gif = gif + p["b_if"]
+        i_g, f_g = torch.sigmoid(gif[..., :H]), torch.sigmoid(gif[..., H:])
+        hn, part = H, True
+    else:
+        raise ValueError(f"the model group ({m}) divides neither the "
+                         f"mLSTM's heads ({H}) nor their width ({dh})")
+    q, k = q * dh ** -0.5, k * dh ** -0.5
+    C0, n0 = _zero_state(x, hn, dk, dh) if state is None else state
+    y, C_f, n_f = _mlstm_scan(q, k, v, i_g, f_g, C0, n0, part=part)
+    y = y.reshape(B, S, hn * dh)
+    if part:                                    # whole: the rank's columns
+        y = tp.split(y, -1)
+    y = y.to(x.dtype)
+    out = tp.reduce_from(layers.matmul(y * F.silu(z), p["down"]))
     return (out, (C_f, n_f)) if return_state else out
 
 
@@ -192,4 +275,13 @@ def slstm_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, state=None,
 
 
 def slstm_decode(p: dict, x: torch.Tensor, state, cfg: ArchConfig):
-    return slstm_forward(p, x, cfg, state=state, return_state=True)
+    """One sLSTM step from ``state``; a state holding the rank's slice of
+    its last dim (the serve cache under ``tp.model_parallel``) is
+    gathered at use and the new state sliced back."""
+    split = state[0].shape[-1] != cfg.d_model // cfg.n_heads
+    if split:
+        state = tuple(tp.gather(t, -1) for t in state)
+    out, new = slstm_forward(p, x, cfg, state=state, return_state=True)
+    if split:
+        new = tuple(tp.shard_of(t, -1) for t in new)
+    return out, new

@@ -12,8 +12,17 @@
   stubbed; ``jax.eval_shape`` of its ``init_cache``; no mesh, no compile);
   the ``SkipShape`` set equals the reference's.
 * A rank's parameter bytes in ``run_one`` equal ``steps.local_params``'s
-  (llama4's experts split over ``data``), and its cache is the whole
-  batch where ``batch_spec`` does not split it (long_500k).
+  (llama4's experts split over ``data``, the tensor-parallel leaves over
+  ``model``: the serve steps run tensor-parallel), its cache bytes the
+  ``cache_spec`` shard's, and its cache is the whole batch where
+  ``batch_spec`` does not split it (long_500k).
+* The serve steps' recorded collectives equal
+  ``analysis.step_collective_bytes`` for every arch at prefill_32k,
+  decode_32k and long_500k on the 16 x 16 mesh, on ``meta`` in a fake
+  world, at one unit of depth (the formula is a sum over units; the
+  dry-run itself checks every combo at full depth, and raises on a
+  difference); xlstm-350m's prefill runs 4,096 of the 32,768 tokens (its
+  sLSTM takes one step a token, 137 s at full length on ``meta``).
 * The CLI on a full-width combo that counts in a few seconds, for its
   lines, its ``--json`` keys and its telemetry (the ``dryrun`` event, the
   spans ``dryrun.build_step`` / ``count_flops`` / ``count_memory``); a
@@ -160,19 +169,19 @@ def test_rank_params_are_local_params_and_the_cache_its_batch():
         roof, _, n = tdryrun.run_one("llama4-maverick-400b-a17b",
                                      "decode_32k", verbose=False, rank=19)
         m = tmesh.make_production_mesh()
-        # a serve shape: the model whole on each model rank
-        local = tsteps.local_params(tsteps.param_structs(cfg), cfg, m,
-                                    split_model=False)
+        # a serve shape: the rank's param_spec shard, as the serve steps
+        # run tensor-parallel
+        local = tsteps.local_params(tsteps.param_structs(cfg), cfg, m)
     want = sum(t.numel() * t.element_size() for _, t in TL.flatten(local))
     assert roof.mem_detail["params"] == want
-    assert want < n * 2 / 4          # the experts split over 16 data ranks
+    assert want < n * 2 / 64         # experts over 16 data ranks, and model
     cache, _ = tsteps.cache_structs(cfg, tshapes.SHAPES["decode_32k"], mesh)
     cache_bytes = sum(t.numel() * t.element_size()
                       for _, t in TL.flatten(cache))
     assert roof.mem_detail["inputs"] == cache_bytes + 8 * 8
     assert roof.coll_detail["all-to-all"] > 0          # EP in the forward
     assert roof.coll_detail["all-gather"] > 0          # the logits
-    assert roof.n_devices == 16
+    assert roof.n_devices == 256         # the batch and the layers split
     # long_500k: a batch of 1 stays whole on every rank
     long_cache, _ = tsteps.cache_structs(
         tshapes.adapt_config(tconfigs.get_config("qwen3-0.6b"),
@@ -180,6 +189,50 @@ def test_rank_params_are_local_params_and_the_cache_its_batch():
         tshapes.SHAPES["long_500k"], mesh)
     assert next(v for p, v in TL.flatten(long_cache)
                 if p == "attn/k").shape[2] == 1
+
+
+SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+
+
+def _serve_collectives(arch: str, shape_name: str):
+    """(recorded, the formula's) bytes of one rank's serve step at one
+    unit of depth on the 16 x 16 mesh."""
+    import dataclasses
+    from repro_torch.launch import analysis as tanalysis
+    shape = tshapes.SHAPES[shape_name]
+    cfg = tshapes.adapt_config(tconfigs.get_config(arch), shape)
+    cfg = dataclasses.replace(cfg, n_layers=len(cfg.unit_pattern))
+    if arch == "xlstm-350m" and shape.kind == "prefill":
+        shape = dataclasses.replace(shape, seq_len=4096)
+    with tdryrun.fake_world(256, 37):
+        mesh = tmesh.make_production_mesh(device="meta")
+        params = tsteps.local_params(tsteps.param_structs(cfg), cfg, mesh)
+        cache, _ = tsteps.cache_structs(cfg, shape, mesh)
+        _, glob = tsteps.batch_structs(cfg, shape, mesh)
+        glob = {k: torch.empty(s, dtype=dt, device="meta")
+                for k, (s, dt) in glob.items()}
+        make = tsteps.make_prefill_step if shape.kind == "prefill" \
+            else tsteps.make_decode_step
+        fn = make(cfg, shape, mesh).fn
+        with tanalysis.CollectiveRecorder() as rec:
+            fn(params, glob if shape.kind == "prefill" else glob["tokens"],
+               cache)
+        want = tanalysis.step_collective_bytes(cfg, shape, mesh.shape,
+                                               None, None)
+    return rec.bytes(), want, rec.calls
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCHS
+                                  if a != "gpt2s-federated"])
+def test_serve_collectives_equal_step_collective_bytes(arch):
+    for name in SERVE_SHAPES:
+        try:
+            got, want, calls = _serve_collectives(arch, name)
+        except tshapes.SkipShape:
+            continue
+        assert got == want, (name, got, want)
+        # over model; the EP exchange and the logits over data
+        assert {axes for _, axes, _ in calls} <= {("model",), ("data",)}
 
 
 # -- the CLI -------------------------------------------------------------------
@@ -201,12 +254,12 @@ def test_cli_lines_json_resume_and_report(tmp_path, capsys):
     assert lines[0].startswith("== qwen3-0.6b x decode_32k x 16x16 "
                                "(aggregate=-) counted in ")
     assert lines[1] == "   params: 0.752B (active 0.752B)"
-    assert re.match(r"   memory/rank: params=2\.80G grads=0\.00G "
+    assert re.match(r"   memory/rank: params=0\.38G grads=0\.00G "
                     r"sketch state=0\.00G activations peak=[\d.]+G "
                     r"peak~[\d.]+G$", lines[2])
     assert re.match(r"   cost/rank: flops=\S+ step_flops/rank=\S+ "
                     r"bytes=\S+ coll_bytes=\S+$", lines[3])
-    assert lines[4].startswith("   collectives: {'all-gather': ")
+    assert lines[4].startswith("   collectives: {'all-reduce': ")
     assert re.match(r"   roofline\(ms\): compute=[\d.]+ \(counted [\d.]+\) "
                     r"memory=[\d.]+ collective=[\d.]+ -> \w+-bound  "
                     r"useful=[\d.]+$", lines[5])
@@ -214,7 +267,8 @@ def test_cli_lines_json_resume_and_report(tmp_path, capsys):
     rec = json.loads(out.read_text())
     assert set(rec) == KEYS
     assert rec["params"] == 751_632_384
-    assert rec["coll_detail"]["all-gather"] == 128 * 151_936 * 4
+    # the logits: the rank's 8 rows over vocab, then the 128 over data
+    assert rec["coll_detail"]["all-gather"] == (8 + 128) * 151_936 * 4
     assert not torch.cuda.is_initialized()
     # the telemetry: the dryrun event and its three spans, valid
     assert tschema.validate_jsonl(str(metrics)) == []

@@ -33,9 +33,10 @@ are split over the two files.)
   threads than the test's, another order of summation, which flips
   bfloat16 roundings as between the packages (without EP the two differ
   by up to 3.3e-3 of a leaf's largest gradient, with it 2.6e-3).
-* Prefill and two decode steps of glm4-9b smoke at (data 2, model 2)
-  against single-device ``prefill`` / ``decode_step`` (rtol 1e-5 of the
-  largest logit: another batch size, another summation order).
+* Prefill and two decode steps of glm4-9b smoke at (data 2, model 2),
+  tensor-parallel (each rank its parameter shard and its cache's kv
+  heads), against single-device ``prefill`` / ``decode_step`` (rtol 1e-5
+  of the largest logit: another batch size, another summation order).
 """
 
 import dataclasses
@@ -144,8 +145,11 @@ def serve(mesh, npz_path) -> dict:
         "p", "prefill", S + 2, B), mesh)
     dec = tsteps.make_decode_step(cfg, tshapes.ShapeSpec(
         "d", "decode", S + 2, B), mesh)
+    # the rank's param_spec shard and cache_spec slice: the serve steps
+    # run tensor-parallel over the model group
+    params = tsteps.local_params(params, cfg, mesh)
     cache = tt.init_cache(cfg, tsteps.local_batch_size(B, mesh), S + 2,
-                          dtype=torch.float32)
+                          dtype=torch.float32, model=mesh.shape["model"])
     logits = [pre.fn(params, {"tokens": torch.from_numpy(
         data["prompt"]).long()}, cache)[0]]
     for t in data["next"]:

@@ -9,11 +9,18 @@
   ``assemble_params``, against the single-device ``value_and_grad``:
   at 1 x 2 for qwen3 (qk-norm, kv heads split), internlm2, gpt2s with
   tied embeddings (the unembedding is the table's shard, transposed),
-  qwen2-moe (experts' width and the shared expert split) and jamba
-  (mamba's leaves gathered at use, MoE); at 1 x 4 for glm4 (kv 2: K/V
-  split over head_dim, gathered at use) and qwen3 with ``n_kv_heads=2``
-  (K/V kept whole under qk-norm, their gradients summed over the group);
-  at 2 x 2 for qwen2-moe with its experts split over ``data`` too (EP).
+  qwen2-moe (experts' width and the shared expert split), jamba (the
+  Megatron mamba over ``d_inner``: ``in_proj``'s output regrouped to the
+  rank's channels, ``x_proj`` and ``out_proj`` row-parallel; MoE; and
+  with ``ssm_remat``, whose checkpointed scan chunks sum ``x_proj``'s
+  partials in each chunk) and
+  xlstm (the Megatron mLSTM over its heads, the sLSTM replicated); at
+  1 x 4 for glm4 (kv 2: K/V split over head_dim, gathered at use), qwen3
+  with ``n_kv_heads=2`` (K/V kept whole under qk-norm, their gradients
+  summed over the group), jamba, xlstm, and xlstm with ``n_heads=2``
+  (the mLSTM split over ``dh``: partial scores, reads and normalizers
+  summed over the group); at 2 x 2 for qwen2-moe with its experts split
+  over ``data`` too (EP).
   The comparison runs with a float32 residual
   (``transformer.RESIDUAL_DTYPE``) to rtol 1e-5 (atol 1e-5 of a leaf's
   largest gradient, for the elements that cancel): the two differ only by
@@ -21,7 +28,15 @@
   With the train path's bfloat16 residual a float32 difference in the
   last bit flips a bfloat16 rounding now and then (2**-8 relative), so
   there the loss is held to rtol 5e-5 and each leaf to 1e-2 of its
-  largest gradient, ``test_torch_zoo.py``'s rule.
+  largest gradient, ``test_torch_zoo.py``'s rule.  The xlstm cases are
+  held to their own floor: moving every float32 weight of the smoke
+  model by one step moves a leaf's gradient by up to 7.4e-5 of its
+  largest (1.2e-4 with ``n_heads=2``; qwen3 2.3e-6, jamba 1.9e-5) with
+  the float32 residual and 4.5e-2 with bfloat16, so there a leaf is held
+  to 2e-4 of its largest (float32) and to ``test_torch_xlstm.py``'s
+  5e-2 (bfloat16).
+* Each rank's recorded collectives of every case equal
+  ``analysis.model_collective_calls``, with either residual.
 * A full step at 1 x 2, gathered and model_local, against the
   replicated step (the single-device gradient through ``F.step`` in the
   mesh's layout), float32 residual: each table cell within 1e-6 of the
@@ -29,7 +44,8 @@
   within about 1.5e-6 of its leaf's largest), Delta as a set of ids, the
   parameters after the round (the shards gathered) within 1e-6.
 * ``local_params`` / ``assemble_params`` invert each other at (2, 2)
-  with EP, and a rank holds exactly the ``param_spec`` shard sum of the
+  with EP, ``init_params(shard=)`` draws each rank's ``local_params``,
+  and a rank holds exactly the ``param_spec`` shard sum of the
   full configs at 16 x 16 (llama4 3.82 GiB, jamba 1.09, pixtral 2.86,
   qwen3 0.38), which the dry-run reports.
 
@@ -48,6 +64,7 @@ import torch
 from repro_torch import configs as tconfigs
 from repro_torch.core import fetchsgd as TF
 from repro_torch.core import layout as TL
+from repro_torch.launch import analysis as tanalysis
 from repro_torch.launch import dryrun as tdryrun
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import shapes as tshapes
@@ -57,9 +74,12 @@ from repro_torch.models import transformer as tt
 
 SEQ, ROWS, COLS, K, LR = 32, 3, 4096, 64, 0.1
 CASES_2 = ("qwen3-0.6b", "internlm2-1.8b", "gpt2s-tied", "qwen2-moe-a2.7b",
-           "jamba-v0.1-52b")
-CASES_4 = ("glm4-9b", "qwen3-kv2", "qwen2-moe-ep")
+           "jamba-v0.1-52b", "jamba-ssm-remat", "xlstm-350m")
+CASES_4 = ("glm4-9b", "qwen3-kv2", "qwen2-moe-ep", "jamba-1x4", "xlstm-1x4",
+           "xlstm-h2")
 GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-5      # float32 residual: of a leaf's max
+# the xlstm cases' floor, of a leaf's max (module docstring)
+XLSTM_ATOL = {"f32": 2e-4, "bf16": 5e-2}
 
 
 def cfg_of(name: str):
@@ -69,6 +89,15 @@ def cfg_of(name: str):
     if name == "qwen3-kv2":
         return dataclasses.replace(tconfigs.get_smoke("qwen3-0.6b"),
                                    n_kv_heads=2)
+    if name.endswith("-1x4"):          # a 1 x 2 case on four ranks
+        return cfg_of({"jamba-1x4": "jamba-v0.1-52b",
+                       "xlstm-1x4": "xlstm-350m"}[name])
+    if name == "jamba-ssm-remat":      # x_proj's sum in each scan chunk
+        return dataclasses.replace(tconfigs.get_smoke("jamba-v0.1-52b"),
+                                   ssm_remat=True)
+    if name == "xlstm-h2":
+        return dataclasses.replace(tconfigs.get_smoke("xlstm-350m"),
+                                   n_heads=2, n_kv_heads=2)
     if name == "qwen2-moe-ep":
         return dataclasses.replace(tconfigs.get_smoke("qwen2-moe-a2.7b"),
                                    shard_experts_data=True)
@@ -97,6 +126,7 @@ def one_torch_thread():
 # -- the worlds (one process a rank; must be importable) --------------------------
 
 def _grads(name: str, world: int, residual) -> tuple:
+    """(loss, gradients, the recorded collectives, the formula's)."""
     cfg = cfg_of(name)
     data, model = mesh_of(name, world)
     mesh = tmesh.make_debug_mesh(data, model)
@@ -106,11 +136,15 @@ def _grads(name: str, world: int, residual) -> tuple:
     local = tsteps.local_params(tt.init_params(cfg, seed=1), cfg, mesh)
     tt.RESIDUAL_DTYPE = residual
     try:
-        loss, g = bundle.grad_fn(local, tsteps.local_batch(
-            batch_of(cfg, 2 * data), mesh))
+        with tanalysis.CollectiveRecorder() as rec:
+            loss, g = bundle.grad_fn(local, tsteps.local_batch(
+                batch_of(cfg, 2 * data), mesh))
+        want = tanalysis._coll_dict(tanalysis.model_collective_calls(
+            cfg, shape, mesh.shape))
     finally:
         tt.RESIDUAL_DTYPE = torch.bfloat16
-    return float(loss), {p: v.numpy() for p, v in TL.flatten(g)}
+    return (float(loss), {p: v.numpy() for p, v in TL.flatten(g)},
+            rec.bytes(), want)
 
 
 def _full_step(mode: str) -> dict:
@@ -178,6 +212,7 @@ def test_tensor_parallel_loss_and_grads_match_the_single_device(
     data, model = mesh_of(name, size)
     residual = torch.float32 if label == "f32" else torch.bfloat16
     loss_rtol = 1e-5 if label == "f32" else 5e-5
+    xlstm = cfg.arch_type == "ssm"
     _, ds_axes = tsteps.ep_info(cfg, {"data": data, "model": model})
     singles = [single(name, d, data, residual) for d in range(data)]
     got = assembled([r[name, label][1] for r in res], cfg,
@@ -198,20 +233,32 @@ def test_tensor_parallel_loss_and_grads_match_the_single_device(
                          {"data": 1, "model": model})
         for p, w in TL.flatten(singles[d][1]):
             if p not in ds_axes:
-                _check(part[p], w.numpy(), label, p)
+                _check(part[p], w.numpy(), label, p, xlstm)
     for p in ds_axes:
-        _check(got[p], want[p], label, p)
+        _check(got[p], want[p], label, p, xlstm)
     assert got.keys() == want.keys()
 
 
-def _check(got, want, label, path):
+@pytest.mark.parametrize("name", CASES_2 + CASES_4)
+def test_recorded_collectives_equal_model_collective_calls(worlds, name):
+    """Each rank's forward and backward moves what the formula says, with
+    either residual (the Megatron mamba and mLSTM forms included)."""
+    for r in worlds[2 if name in CASES_2 else 4]:
+        for label in ("f32", "bf16"):
+            _, _, got, want = r[name, label]
+            assert got == want, (label, got, want)
+
+
+def _check(got, want, label, path, xlstm: bool = False):
     if label == "f32":
+        atol = XLSTM_ATOL[label] if xlstm else GRAD_ATOL
         np.testing.assert_allclose(got, want, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL * np.abs(want).max(),
+                                   atol=atol * np.abs(want).max(),
                                    err_msg=path)
     else:
+        atol = XLSTM_ATOL[label] if xlstm else 1e-2
         np.testing.assert_allclose(got, want, rtol=0,
-                                   atol=1e-2 * np.abs(want).max(),
+                                   atol=atol * np.abs(want).max(),
                                    err_msg=path)
 
 
@@ -271,11 +318,24 @@ def test_local_params_and_assemble_params_invert_each_other():
     back = tsteps.assemble_params(parts, cfg, mesh)
     for (p, a), (_, b) in zip(TL.flatten(full), TL.flatten(back)):
         assert torch.equal(a, b), p
-    whole = tsteps.local_params(full, cfg, mesh, data_index=0,
-                                model_index=1, split_model=False)
-    for p, t in TL.flatten(whole):
-        if p not in ds_axes:
-            assert t.shape == dict(TL.flatten(full))[p].shape, p
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-ep", "jamba-v0.1-52b",
+                                  "whisper-small", "xlstm-350m"])
+def test_init_params_with_a_shard_draws_the_rank_s_local_params(name):
+    """``init_params(shard=param_shard(...))`` draws the same numbers as
+    ``local_params`` of the whole tree, rank by rank, at (2, 2)."""
+    cfg = cfg_of(name)
+    mesh = {"data": 2, "model": 2}
+    full = tt.init_params(cfg, seed=3)
+    for d in range(2):
+        for m in range(2):
+            want = TL.flatten(tsteps.local_params(full, cfg, mesh, d, m))
+            got = TL.flatten(tt.init_params(cfg, seed=3, shard=tsteps.
+                                            param_shard(cfg, mesh, d, m)))
+            assert [p for p, _ in got] == [p for p, _ in want]
+            for (p, g), (_, w) in zip(got, want):
+                assert torch.equal(g, w), (d, m, p)
 
 
 # the per-rank parameters of the full configs at 16 x 16 by param_spec, in
