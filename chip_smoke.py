@@ -28,7 +28,28 @@ In order, it
    round-clock orchestrator (flat with dropout, async with late merges,
    tree) and each of the paper's baselines, checking losses, fates,
    traffic and the kernels' launches, and timing every round;
-6. runs the event clock and the population-scale paths at full width
+6. runs the four example entry points (``examples``):
+   ``repro_torch.launch.quickstart``, ``.compression_sweep``,
+   ``.async_federated`` and ``.heterogeneous_federation`` called from
+   Python at full width (gpt2s-federated, PersonaLM clients at seq 256, 2
+   rounds of the examples' own cohorts of 4 or 6 clients, the 5 x 2**20
+   sketch with k = 25,000; the sweep's nine runs: FetchSGD over cols
+   {2**19, 2**20} x k {12,500, 25,000}, local top-k over k, FedAvg over 1
+   and 3 local epochs, uncompressed), each run's losses finite, launches
+   equal to the formula and ledger equal to ``core/compression``'s
+   reckoning (FetchSGD's upload_x 30.93 and 61.85); async_federated's
+   late merges; async_federated and heterogeneous_federation against a
+   second call at the micro width on the CPU (every record field but the
+   loss, ``t_virtual`` and the critical paths to the byte); the Count
+   Sketch object API (``sketch_vector`` at 2**24 + 3 and 9,216 values,
+   ``estimate``, ``+``, ``scale``, ``l2_estimate``) on the card against
+   its CPU twin, launches counted; then each example's command line,
+   ``python -m repro_torch.launch.<name> --rounds 2`` with no
+   ``--device``: exit 0 on the card, a refusal without a visible card,
+   and async_federated's resume from its checkpoint directory
+   (``chip_smoke_examples.json``, the command lines' output in
+   ``chip_smoke_examples_cli.log``);
+7. runs the event clock and the population-scale paths at full width
    through ``repro_torch.fed.Orchestrator`` (event-clock flat, async and
    tree over a population of 64; the vectorized round clock over 10**6
    clients; lazy events of a 10**4-client cohort from 10**6 on the event
@@ -36,17 +57,17 @@ In order, it
    but its loss against the same configuration at the micro model's
    width on the CPU, and reporting seconds per round, dispatch seconds
    and peak device memory;
-7. checkpoints and resumes at full width (``resume``): event-clock async
+8. checkpoints and resumes at full width (``resume``): event-clock async
    and round-clock async, each run 4 rounds straight and 2 + 2 rounds
    through a checkpoint in a fresh ``Orchestrator``; restore is bitwise,
    every record field but the loss equals the straight run's, losses
    within rtol 1e-3; checkpoint bytes, save and restore seconds;
-8. runs FetchSGD through ``run_simulation`` with telemetry
+9. runs FetchSGD through ``run_simulation`` with telemetry
    (``telemetry``): a JSONL stream with spans, kernel spans and a
    sketch-health sample each round, checked against the launch counts and
    against the same run without telemetry; the median seconds of each
    span, s/round with and without telemetry, and a health sample's cost;
-9. serves the zoo at full width (``serve``): batch 2, a prompt of 64
+10. serves the zoo at full width (``serve``): batch 2, a prompt of 64
    and 32 greedy tokens through ``repro_torch.launch.serve_lm.serve`` for
    gpt2s-federated, internlm2-1.8b, qwen3-0.6b, glm4-9b, qwen2-moe-a2.7b,
    xlstm-350m, jamba-v0.1-52b (16 of its 32 layers, bfloat16),
@@ -61,7 +82,7 @@ In order, it
    rounds of FetchSGD on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24
    layers), xlstm-350m, whisper-small and pixtral-12b (8 of its 40
    layers), every kernel's launches counted;
-10. runs the mesh train step at full width (``mesh``): qwen3-0.6b at
+11. runs the mesh train step at full width (``mesh``): qwen3-0.6b at
     seq 64, global batch 8, the 5 x 2**20 sketch and k = 25,000; as a
     world of 1 (nccl) through ``python -m repro_torch.launch.train
     --rounds 3`` in flat, tree, dense, async (round 1 straggles) and
@@ -93,7 +114,7 @@ In order, it
     recorded collectives equal to ``step_collective_bytes``, prefill
     seconds and decode ms/token beside the world of 1's; seconds per
     round and of one table's all_reduce (``chip_smoke_mesh.json``);
-11. runs the dry-run (``dryrun``): ``python -m repro_torch.launch.dryrun``
+12. runs the dry-run (``dryrun``): ``python -m repro_torch.launch.dryrun``
     in processes that see no card (qwen3-0.6b train_4k at 16 x 16 and at
     2 x 16 x 16, llama4-maverick-400b-a17b train_4k model_local), each
     exiting 0 with its roofline row; then ``dryrun.run_one``'s prediction
@@ -112,9 +133,9 @@ In order, it
     gradients equal to the plain pass's; seconds per round and the
     step's and the model's FLOPs as shares of the bf16 and the float32
     peak (``chip_smoke_dryrun.json``);
-12. prints the kernels line (with each kernel's launches in the mesh
-    phase's world-of-1 runs), the card's name and power limit, and last
-    ``{"ok": true, "device": {...}}``.
+13. prints the kernels line (with each kernel's launches in the mesh
+    phase's world-of-1 runs and in the examples phase's runs), the card's
+    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without CUDA, or a directory without the
@@ -610,6 +631,364 @@ def fedsim_phase(torch, dev, smi_line: str) -> list[dict]:
     return out
 
 
+EXAMPLE_ROUNDS = 2
+# compression_sweep at full width: the reference's grid (cols x k for
+# FetchSGD, k for local top-k, local epochs for FedAvg) at the main path's
+# sketch and its half
+EXAMPLE_SWEEP = {"cols": (1 << 19, 1 << 20), "k": (12_500, 25_000),
+                 "local_k": (12_500, 25_000), "local_epochs": (1, 3)}
+EXAMPLE_CLIS = ("quickstart", "compression_sweep", "async_federated",
+                "heterogeneous_federation")
+OBJECT_LENGTHS = ((1 << 24) + 3, 9_216)     # the binned and one-pass paths
+CLI_TIMEOUT_S = 300
+
+
+def fetchsgd_launches(computed: int, updates: int) -> dict[str, int]:
+    """17 encodes a client that computed; 17 estimates, one
+    momentum_error and one topk_mask a server update."""
+    return {"encode": N_CHUNKS * computed, "estimate": N_CHUNKS * updates,
+            "momentum_error": updates, "topk_mask": updates}
+
+
+NO_LAUNCHES = fetchsgd_launches(0, 0)
+
+
+def examples_phase(torch, dev, smi_line: str) -> dict:
+    """The four example entry points (``repro_torch.launch.quickstart``,
+    ``.compression_sweep``, ``.async_federated``,
+    ``.heterogeneous_federation``) at full width, called from Python:
+    gpt2s-federated from random weights, PersonaLM clients at seq 256, 2
+    rounds, the examples' own cohorts (4 or 6 clients), the 5 x 2**20
+    sketch with k = 25,000 (the sweep: FetchSGD over cols {2**19, 2**20}
+    x k {12,500, 25,000}, local top-k over k, FedAvg over 1 and 3 local
+    epochs, uncompressed).  Each run's losses finite, its launches equal
+    to the formula and its ledger to ``core/compression``'s reckoning;
+    async_federated and heterogeneous_federation also against a second
+    call at the micro model's width on the CPU, every record field but
+    the loss equal (``t_virtual`` and the critical paths to the byte).
+    Then each command line on the card, and the Count Sketch object API
+    against its CPU twin."""
+    from repro_torch import configs, fed
+    from repro_torch.core import compression
+    from repro_torch.core import fetchsgd as F
+    from repro_torch.data import synthetic
+    from repro_torch.launch import (async_federated, compression_sweep,
+                                    heterogeneous_federation, quickstart,
+                                    simulate)
+
+    t0 = time.time()
+    cfg = configs.get_config("gpt2s-federated")
+    fs_cfg = F.FetchSGDConfig(rows=ROWS, cols=COLS, k=K, momentum=0.9)
+    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
+                                  n_clients=64)
+    micro = simulate.micro_cfg()
+    micro_data = synthetic.PersonaLM(vocab=micro.vocab, seq_len=16,
+                                     n_clients=64)
+    rounds = EXAMPLE_ROUNDS
+    seconds: dict[str, list] = {}
+    clock = [0.0]
+
+    def progress(name, r, loss):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds.setdefault(name, []).append(now - clock[0])
+        clock[0] = now
+
+    def start():
+        torch.cuda.synchronize()
+        clock[0] = time.perf_counter()
+
+    print(f"examples on {smi_line}")
+    out: list[dict] = []
+
+    def ran(example, name, res, cpr, launches, per_round=None):
+        """Check one run (launches, losses, the ledger) and keep it."""
+        what = f"{example} {name}"
+        print(f"{what}: losses {res['losses']}; s/round "
+              f"{seconds.get(name)}; launches {res['launches']} "
+              f"({smi_line})")
+        check(all(x is not None and math.isfinite(x)
+                  for x in res["losses"]), f"{what}: every loss finite")
+        check(res["launches"] == launches,
+              f"{what}: launches {res['launches']} = {launches}")
+        if per_round is not None:
+            meter = compression.TrafficMeter(d=D_FULL)
+            for _ in range(rounds):
+                meter.record(per_round, cpr)
+            check(res["traffic"] == meter.compression(cpr),
+                  f"{what}: traffic = core/compression's reckoning")
+        out.append(dict(example=example, run=name, clients_per_round=cpr,
+                        losses=res["losses"],
+                        seconds=seconds.pop(name, []),
+                        launches=res["launches"], traffic=res["traffic"]))
+
+    # -- quickstart: uncompressed, then FetchSGD, 4 clients a round ---------
+    start()
+    for res in quickstart.run(cfg, dataset, fs_cfg, rounds, device=dev,
+                              progress=progress):
+        if res["method"] == "fetchsgd":
+            ran("quickstart", "fetchsgd", res, 4,
+                fetchsgd_launches(4 * rounds, rounds),
+                compression.fetchsgd_round(ROWS, COLS, K))
+            up = res["traffic"]["upload_x"]
+            check(math.isclose(up, D_FULL / (ROWS * COLS), rel_tol=1e-12),
+                  f"quickstart fetchsgd: upload_x {up:.4f} = d / (5 x 2**20)")
+        else:
+            ran("quickstart", res["method"], res, 4, NO_LAUNCHES,
+                compression.uncompressed_round(D_FULL))
+
+    # -- compression_sweep: the reference's nine runs at full width ---------
+    start()
+    for res in compression_sweep.run(cfg, dataset, EXAMPLE_SWEEP, rounds,
+                                     device=dev, progress=progress):
+        name, method = res["name"], res["method"]
+        print("sweep CSV: " + compression_sweep.csv_row(res))
+        if method == "fetchsgd":
+            cols, k = (int(x) for x in name[len("fetchsgd_c"):].split("_k"))
+            ran("compression_sweep", name, res, 4,
+                fetchsgd_launches(4 * rounds, rounds),
+                compression.fetchsgd_round(ROWS, cols, k))
+            up = res["traffic"]["upload_x"]
+            check(math.isclose(up, D_FULL / (ROWS * cols), rel_tol=1e-12),
+                  f"{name}: upload_x {up:.4f} = d / (5 x {cols})")
+        elif method == "local_topk":
+            k = int(name[len("local_topk_k"):])
+            # the download is the union of the uploaded supports, which
+            # only the run knows; the upload is k values a client
+            check(res["traffic"]["upload_bytes"] == k * 4 * 4 * rounds,
+                  f"{name}: upload = k values a client a round")
+            ran("compression_sweep", name, res, 4, NO_LAUNCHES)
+        else:
+            ran("compression_sweep", name, res, 4, NO_LAUNCHES,
+                compression.fedavg_round(D_FULL) if method == "fedavg"
+                else compression.uncompressed_round(D_FULL))
+
+    # -- async_federated: flat and async over the same failure draws --------
+    traffic = compression.fetchsgd_round(ROWS, COLS, K)
+    start()
+    card = async_federated.run(cfg, dataset, fs_cfg, rounds, device=dev,
+                               progress=progress)
+    cpu = async_federated.run(micro, micro_data, fs_cfg, rounds,
+                              device="cpu")
+    # both policies draw the same cohorts and fates; flat counts a
+    # straggler, whose gradient and sketch it computed, as dropped, so the
+    # clients that computed are the cohort less async's dropouts
+    dropouts = [r["n_dropped"] for r in card["async"]["records"]]
+    for policy, res in card.items():
+        recs = [fed.RoundRecord(**r) for r in res["records"]]
+        name = f"async_federated {policy}"
+        if policy == "flat":
+            check([r.cohort for r in recs] == [
+                r["cohort"] for r in card["async"]["records"]],
+                f"{name}: the cohorts are async's")
+            launches = fetchsgd_launches(
+                sum(len(r.cohort) - d for r, d in zip(recs, dropouts)),
+                sum(r.n_fresh + r.n_late > 0 for r in recs))
+        else:
+            launches = expected_launches(recs, per_object_event=False)
+        check(record_meta(recs) == [
+            {k: v for k, v in r.items() if k != "loss"}
+            for r in cpu[policy]["records"]],
+            f"{name}: every record but its loss equals the micro model's "
+            f"on the CPU")
+        meter = compression.TrafficMeter(d=D_FULL)
+        for r in recs:
+            meter.record(compression.RoundTraffic(
+                upload=r.upload_bytes,
+                download=traffic.download * (r.n_fresh + r.n_straggling)), 1)
+        check(res["traffic"] == meter.compression(6),
+              f"{name}: traffic = core/compression's reckoning for the same "
+              f"participation")
+        ran("async_federated", policy, res, 6, launches)
+    late = sum(r["n_late"] for r in card["async"]["records"])
+    check(late > 0, f"async_federated async: {late} late tables merged with "
+          f"their discount")
+    del card
+
+    # -- heterogeneous_federation: flat, tree, async on the event clock -----
+    start()
+    card = heterogeneous_federation.run(cfg, dataset, fs_cfg, rounds,
+                                        device=dev, progress=progress)
+    again = heterogeneous_federation.run(micro, micro_data, fs_cfg, rounds,
+                                         device="cpu")
+    het = {}
+    for policy, res in card.items():
+        recs = [fed.RoundRecord(**r) for r in res["records"]]
+        name = f"heterogeneous_federation {policy}"
+        fed_cfg = fed.FederationConfig(aggregate=policy, tree_fanout=2)
+        meter, _ = event_ledger(name, recs, fed_cfg, traffic)
+        check(res["traffic"] == meter.compression(6),
+              f"{name}: traffic = core/compression's reckoning")
+        other = again[policy]
+        check(record_meta(recs) == [
+            {k: v for k, v in r.items() if k != "loss"}
+            for r in other["records"]]
+            and res["t_virtual"] == other["t_virtual"]
+            and res["cp_sum_s"] == other["cp_sum_s"],
+            f"{name}: t_virtual {res['t_virtual']!r} and critical paths "
+            f"{[r.critical_path_s for r in recs]} equal a second call's at "
+            f"the micro width on the CPU, to the byte, and so does every "
+            f"record field but the loss")
+        ran("heterogeneous_federation", policy, res, 6,
+            expected_launches(recs, per_object_event=True))
+        het[policy] = dict(t_virtual=res["t_virtual"],
+                           cp_sum_s=res["cp_sum_s"],
+                           upload_mb=res["upload_mb"],
+                           final_loss=res["final_loss"])
+    del card
+    torch.cuda.empty_cache()
+    calls_s = time.time() - t0
+
+    objects = object_api_checks(torch, dev)
+    clis = example_clis()
+    totals = {k: sum(r["launches"][k] for r in out) for k in NO_LAUNCHES}
+    return dict(runs=out, heterogeneous=het, launches=totals,
+                calls_seconds=calls_s, clis=clis, object_api=objects,
+                seconds=time.time() - t0)
+
+
+def run_all(cmds: dict[str, tuple[list, dict]]) -> dict[str, dict]:
+    """Start every command at once and wait for all: {name: (argv, env)}
+    -> {name: returncode, stdout, stderr, seconds}.  Kills what is left
+    on the way out."""
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for name, (argv, env) in cmds.items():
+            procs[name] = subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        res = {}
+        for name, proc in procs.items():
+            so, se = proc.communicate(timeout=CLI_TIMEOUT_S)
+            res[name] = dict(returncode=proc.returncode, stdout=so,
+                             stderr=se, seconds=time.perf_counter() - t0)
+        return res
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def example_clis() -> dict:
+    """Each example's command line as the README runs it, ``python -m
+    repro_torch.launch.<name> --rounds 2`` with no ``--device``: it exits 0
+    on the card, and without a visible card it refuses to start (the card
+    is its default).  async_federated also into a checkpoint directory,
+    then again with 4 rounds, which resumes after round 1."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    no_card = dict(env, CUDA_VISIBLE_DEVICES="")
+
+    def cmd(name, *extra, rounds=EXAMPLE_ROUNDS):
+        return [sys.executable, "-m", f"repro_torch.launch.{name}",
+                "--rounds", str(rounds), *extra]
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "ckpt")
+        cmds = {name: (cmd(name), env) for name in EXAMPLE_CLIS}
+        cmds["async_federated --checkpoint-dir"] = (
+            cmd("async_federated", "--checkpoint-dir", ckpt), env)
+        cmds.update({f"{name} without a card": (cmd(name), no_card)
+                     for name in EXAMPLE_CLIS})
+        res = run_all(cmds)
+        res.update(run_all({"async_federated --rounds 4 --checkpoint-dir": (
+            cmd("async_federated", "--checkpoint-dir", ckpt, rounds=4),
+            env)}))
+        check(os.path.isdir(ckpt + "-flat") and os.path.isdir(ckpt + "-async"),
+              "async_federated checkpointed into <dir>-flat and <dir>-async")
+    with open(OUT / "chip_smoke_examples_cli.log", "w") as f:
+        for name, r in res.items():
+            f.write(f"== {name}: rc {r['returncode']}, {r['seconds']:.1f} s"
+                    f"\n{r['stdout']}\n-- stderr\n{r['stderr'][-4000:]}\n")
+    marks = {"quickstart": "== fetchsgd",
+             "compression_sweep": "uncompressed,1.00,1.00,",
+             "async_federated": "final loss: flat ",
+             "heterogeneous_federation": "same byte totals"}
+    for name, r in res.items():
+        base = name.split()[0]
+        if name.endswith("without a card"):
+            check(r["returncode"] != 0
+                  and "CUDA is not available" in r["stderr"],
+                  f"{name}: refuses to start (the card is its default)")
+            continue
+        check(r["returncode"] == 0 and marks[base] in r["stdout"],
+              f"`python -m repro_torch.launch.{name} --rounds 2` exits 0 on "
+              f"the card in {r['seconds']:.1f} s")
+    resumed = res["async_federated --rounds 4 --checkpoint-dir"]["stdout"]
+    check("[flat] resuming from round 2" in resumed
+          and "[async] resuming from round 2" in resumed
+          and "round   3" in resumed,
+          "async_federated with 4 rounds resumes each policy from round 2 "
+          "of its checkpoint and runs rounds 2-3")
+    return {name: dict(returncode=r["returncode"], seconds=r["seconds"],
+                       stdout=r["stdout"].splitlines()[-3:])
+            for name, r in res.items()}
+
+
+def object_api_checks(torch, dev) -> dict:
+    """The Count Sketch object API on the card against its CPU twin, at
+    offset 2**32 + 12,345 into 5 x 2**20: ``sketch_vector`` at 2**24 + 3
+    values (binned) and 9,216 (one-pass), exact on integer values and
+    allclose on reals (rtol 1e-5, atol 1e-4: the atomics sum in another
+    order); ``estimate`` exact; ``+`` and ``scale`` exact; ``l2_estimate``
+    within rtol 1e-5 of the float64 median of the CPU table's row norms
+    (the CPU's own float32 norm of 2**20 squares a row drifts by about that
+    much and is reported beside it).  The kernels' launches are counted."""
+    from repro_torch.core import count_sketch as cs
+    from repro_torch.kernels import count_sketch as cuda_cs
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(24)
+    out = {}
+    for n in OBJECT_LENGTHS:
+        path = "binned" if cuda_cs.bins().use(n, ROWS, COLS) else "one_pass"
+        ints = torch.randint(-8, 9, (n,), generator=gen,
+                             dtype=torch.int32).float()
+        reals = torch.randn(n, generator=gen)
+        ops.reset_launch_counts()
+        paths = dict(cuda_cs.PATHS)
+        a = cs.sketch_vector(ints.to(dev), ROWS, COLS, offset=OFFSET)
+        r = cs.sketch_vector(reals.to(dev), ROWS, COLS, offset=OFFSET)
+        est = cs.estimate(a, OFFSET, n)
+        merged = (a + a.scale(3.0)).table
+        l2 = float(r.l2_estimate())
+        counts = ops.launch_counts()
+        took = {p: cuda_cs.PATHS[p] - paths[p] for p in paths}
+        a_cpu = cs.sketch_vector(ints, ROWS, COLS, offset=OFFSET)
+        r_cpu = cs.sketch_vector(reals, ROWS, COLS, offset=OFFSET)
+        err = max_abs_err(torch, r.table.cpu(), r_cpu.table)
+        l2_64 = float(cs.l2_estimate(r_cpu.table.double()))
+        l2_cpu = float(r_cpu.l2_estimate())
+        print(f"object API, {n} values ({path}): launches {counts}, reals' "
+              f"max err {err:g}, l2_estimate {l2!r} on the card, {l2_cpu!r} "
+              f"on the CPU, {l2_64!r} in float64")
+        check(counts == {"encode": 2, "estimate": 1, "momentum_error": 0,
+                         "topk_mask": 0} and took[path] == 2,
+              f"object API, {n} values: 2 sketch_vector calls launched the "
+              f"{path} encode, 1 estimate call the estimate kernel")
+        check(torch.equal(a.table.cpu(), a_cpu.table),
+              f"sketch_vector of {n} integer values on the card = the CPU's")
+        check(torch.allclose(r.table.cpu(), r_cpu.table, rtol=1e-5,
+                             atol=1e-4),
+              f"sketch_vector of {n} reals allclose to the CPU's "
+              f"(max err {err:g})")
+        check(torch.equal(est.cpu(), cs.estimate(a_cpu, OFFSET, n)),
+              f"estimate of {n} ids on the card = the CPU's")
+        check(torch.equal(merged.cpu(), (a_cpu + a_cpu.scale(3.0)).table),
+              "a + a.scale(3) on the card = the CPU's")
+        check(math.isclose(l2, l2_64, rel_tol=1e-5),
+              "l2_estimate on the card = the CPU table's in float64 "
+              "(rtol 1e-5)")
+        out[n] = dict(path=path, launches=counts, reals_max_abs_err=err,
+                      l2_estimate=l2, l2_estimate_cpu=l2_cpu,
+                      l2_estimate_f64=l2_64)
+        del a, r, est, merged
+    return out
+
+
 def eventsim_phase(torch, dev, smi_line: str) -> list[dict]:
     """The event clock and the population-scale paths at full width
     (gpt2s-federated, random weights from seed 0, PersonaLM clients at
@@ -727,25 +1106,8 @@ def eventsim_phase(torch, dev, smi_line: str) -> list[dict]:
         sent = [len(r.cohort) - r.n_dropped for r in recs]
         meter = compression.TrafficMeter(d=D_FULL)
         if orch.is_event:
-            times = [r.t_virtual for r in recs]
-            check(all(a <= b for a, b in zip(times, times[1:]))
-                  and all(r.t_dispatch <= r.t_virtual for r in recs),
-                  f"{name}: virtual time never goes back ({times})")
-            before = [0] + [r.n_straggling for r in recs[:-1]]
-            arrivals = [b + s - r.n_straggling
-                        for b, s, r in zip(before, sent, recs)]
+            meter, arrivals = event_ledger(name, recs, fed_cfg, traffic)
             materialized = sum(arrivals if orch.vectorized else sent)
-            for r, s, a in zip(recs, sent, arrivals):
-                internal = (sum(b for _, b in F.tree_level_bytes(
-                                traffic.upload, r.n_fresh,
-                                fed_cfg.tree_fanout)[1:])
-                            if fed_cfg.aggregate == "tree" else 0)
-                check(r.upload_bytes == s * traffic.upload + internal,
-                      f"{name} round {r.round_idx}: upload {r.upload_bytes}"
-                      f" = {s} x {traffic.upload} + {internal} of tree "
-                      f"forwards")
-                meter.record(compression.RoundTraffic(
-                    upload=r.upload_bytes, download=traffic.download * a), 1)
         else:
             materialized = sum(sent)
             for r in recs:
@@ -797,8 +1159,37 @@ def expected_launches(recs, per_object_event: bool) -> dict[str, int]:
     computed = sum((len(r.cohort) - r.n_dropped) if per_object_event
                    else (r.n_fresh + r.n_straggling) for r in recs)
     updates = sum(r.n_fresh + r.n_late > 0 for r in recs)
-    return {"encode": N_CHUNKS * computed, "estimate": N_CHUNKS * updates,
-            "momentum_error": updates, "topk_mask": updates}
+    return fetchsgd_launches(computed, updates)
+
+
+def event_ledger(name: str, recs, fed_cfg, traffic):
+    """``core/compression``'s reckoning of an event-clock run from its
+    records: each round's upload is the tables sent (and the tree's
+    internal forwards), its download one model delta an arrival.  Checks
+    that virtual time never goes back and each round's upload; returns
+    the meter and the arrivals of each round."""
+    from repro_torch.core import compression
+    from repro_torch.core import fetchsgd as F
+
+    times = [r.t_virtual for r in recs]
+    check(all(a <= b for a, b in zip(times, times[1:]))
+          and all(r.t_dispatch <= r.t_virtual for r in recs),
+          f"{name}: virtual time never goes back ({times})")
+    sent = [len(r.cohort) - r.n_dropped for r in recs]
+    before = [0] + [r.n_straggling for r in recs[:-1]]
+    arrivals = [b + s - r.n_straggling
+                for b, s, r in zip(before, sent, recs)]
+    meter = compression.TrafficMeter(d=D_FULL)
+    for r, s, a in zip(recs, sent, arrivals):
+        internal = (sum(b for _, b in F.tree_level_bytes(
+                        traffic.upload, r.n_fresh, fed_cfg.tree_fanout)[1:])
+                    if fed_cfg.aggregate == "tree" else 0)
+        check(r.upload_bytes == s * traffic.upload + internal,
+              f"{name} round {r.round_idx}: upload {r.upload_bytes} = {s} x "
+              f"{traffic.upload} + {internal} of tree forwards")
+        meter.record(compression.RoundTraffic(
+            upload=r.upload_bytes, download=traffic.download * a), 1)
+    return meter, arrivals
 
 
 def record_meta(recs) -> list[dict]:
@@ -2766,6 +3157,10 @@ def main() -> int:
     fedsim = fedsim_phase(torch, dev, smi)
     (OUT / "chip_smoke_fedsim.json").write_text(json.dumps(
         {"device": smi, "runs": fedsim}, indent=1))
+    print("examples: the four example entry points at full width")
+    examples = examples_phase(torch, dev, smi)
+    (OUT / "chip_smoke_examples.json").write_text(json.dumps(
+        {"device": smi, **examples}, indent=1))
     print("eventsim: the event clock and the population paths at full width")
     eventsim = eventsim_phase(torch, dev, smi)
     (OUT / "chip_smoke_eventsim.json").write_text(json.dumps(
@@ -2813,6 +3208,7 @@ def main() -> int:
          "bound_by": kernels[k]["bound_by"],
          "library_ms": kernels[k].get("library_ms"),
          "mesh_launches": mesh_launches[k],
+         "examples_launches": examples["launches"][k],
          **{sub: kernels[k][sub] for sub in ("one_pass", "estimate_only")
             if sub in kernels[k]}}
         for k, (src, rep) in meta.items()]}

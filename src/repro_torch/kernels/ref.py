@@ -41,6 +41,11 @@ def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
     return est[idx], idx
 
 
+def l2_estimate(table: torch.Tensor) -> torch.Tensor:
+    """Median over rows of the row l2 norms (``CountSketch.l2_estimate``)."""
+    return cs.l2_estimate(table)
+
+
 def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,
                    lr: torch.Tensor, momentum: float
                    ) -> tuple[torch.Tensor, torch.Tensor]:

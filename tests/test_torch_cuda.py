@@ -373,6 +373,48 @@ def test_dispatch_sends_cuda_tensors_to_the_kernels(dev):
                                    "momentum_error": 1, "topk_mask": 1}
 
 
+@pytest.mark.parametrize("n,path", [(9_216, "one_pass"),
+                                    (2**21 + 3, "binned")])
+@pytest.mark.parametrize("offset", [0, 2**32 + 12_345])
+def test_object_api_on_the_card_matches_the_cpu(dev, n, path, offset):
+    """``sketch_vector`` / ``estimate`` launch the encode and estimate
+    kernels on a CUDA tensor and equal their CPU twins (exact on integer
+    values; the reals' atomics sum in another order); ``+`` and ``scale``
+    are exact, ``l2_estimate`` within rtol 1e-5 of the float64 norms."""
+    from repro_torch.core import count_sketch as cs
+
+    rows, cols = 5, 1 << 20
+    gen = torch.Generator().manual_seed(n)
+    v = ints(gen, (n,), "cpu")
+    ops.reset_launch_counts()
+    before = cuda_cs.PATHS[path]
+    got = cs.sketch_vector(v.to(dev), rows, cols, key=2, offset=offset)
+    assert cuda_cs.PATHS[path] == before + 1
+    want = cs.sketch_vector(v, rows, cols, key=2, offset=offset)
+    assert (got.rows, got.cols, got.key) == (rows, cols, 2)
+    assert torch.equal(got.table.cpu(), want.table)
+    assert torch.equal(cs.estimate(got, offset, n).cpu(),
+                       cs.estimate(want, offset, n))
+    assert ops.launch_counts()["encode"] == 1
+    assert ops.launch_counts()["estimate"] == 1
+    w = ints(gen, (n,), "cpu")
+    got_w = cs.sketch_vector(w.to(dev), rows, cols, key=2, offset=offset)
+    both = got + got_w.scale(3.0)
+    assert torch.equal(both.table.cpu(), (want + cs.sketch_vector(
+        w, rows, cols, key=2, offset=offset).scale(3.0)).table)
+    assert torch.equal(both.table, cs.sketch_vector(
+        (v + 3 * w).to(dev), rows, cols, key=2, offset=offset).table)
+    # the row norms' float32 sums of 2**20 squares round in another order
+    # on each device: both against the float64 norms of the same table
+    assert float(got.l2_estimate()) == pytest.approx(
+        float(cs.l2_estimate(want.table.double())), rel=1e-5)
+    reals = torch.randn(n, generator=gen)
+    torch.testing.assert_close(
+        cs.sketch_vector(reals.to(dev), rows, cols, offset=offset).table.cpu(),
+        cs.sketch_vector(reals, rows, cols, offset=offset).table,
+        rtol=1e-5, atol=1e-4)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cuda_cs.sketch_encode(torch.zeros(10, dtype=torch.float16,

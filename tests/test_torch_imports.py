@@ -57,6 +57,11 @@ def test_the_port_and_chip_smoke_import_no_jax_and_no_reference():
     assert out["bad"] == []
     for name in ("repro_torch.launch.dryrun", "repro_torch.launch.analysis",
                  "repro_torch.launch.report_roofline",
-                 "repro_torch.launch.hillclimb", "repro_torch.kernels.ops"):
+                 "repro_torch.launch.hillclimb", "repro_torch.kernels.ops",
+                 "repro_torch.launch.quickstart",
+                 "repro_torch.launch.compression_sweep",
+                 "repro_torch.launch.async_federated",
+                 "repro_torch.launch.heterogeneous_federation",
+                 "repro_torch.core.count_sketch"):
         assert name in out["imported"]
     assert len(out["imported"]) > 40
