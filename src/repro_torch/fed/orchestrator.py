@@ -55,9 +55,12 @@ encode's reordered float sums.
 Telemetry (``telemetry=``, ``repro_torch.obs``) is read-only: round and
 sketch-health events, ``fed.*`` / ``event.*`` / ``agg.*`` instruments and
 the spans ``fed.round``, ``fed.clients``, ``fed.dispatch``,
-``fed.aggregate`` and ``fed.server_update``.  It draws from no RNG and
-changes no order, so an instrumented run's records equal an
-uninstrumented one's.
+``fed.aggregate`` and ``fed.server_update``, and for every client
+computed, on every path, ``fed.client.batch`` (its batch, copied to the
+device), ``fed.client.grad`` (forward, backward and gradient assembly) and
+``fed.client.sketch``, each with the client's id as ``client``.  It draws
+from no RNG and changes no order, so an instrumented run's records equal
+an uninstrumented one's.
 """
 
 from __future__ import annotations
@@ -342,6 +345,20 @@ class Orchestrator:
     def _client_batch(self, c: int) -> dict:
         return federated.to_batch(self.dataset.client_batch(c), self.device)
 
+    def _client_work(self, params: dict, c: int) -> tuple:
+        """(batch, loss, grads, table) of client ``c`` against ``params``,
+        each step in its ``fed.client.*`` span; the loss stays on the
+        device.  Callers drop the batch and gradients before the next
+        client's, as the peak memory is the backward pass's."""
+        span = self.tele.span
+        with span("fed.client.batch", client=c):
+            batch = self._client_batch(c)
+        with span("fed.client.grad", client=c):
+            loss, grads = self.grad_fn(params, batch)
+        with span("fed.client.sketch", client=c):
+            table = self._sketch(grads)
+        return batch, loss, grads, table
+
     def _client_weight(self, c: int, batch: dict) -> float:
         """FedSKETCH-style per-client merge weight (exact by linearity)."""
         wb = self.fed_cfg.weight_by
@@ -501,9 +518,8 @@ class Orchestrator:
         """
         out = []
         for c in ids:
-            loss, grads = self.grad_fn(params, self._client_batch(c))
-            table = self._sketch(grads)
-            del grads
+            batch, loss, grads, table = self._client_work(params, c)
+            del batch, grads
             out.append((float(loss), table))
         return out
 
@@ -529,14 +545,13 @@ class Orchestrator:
                     if fate == 2:
                         n_dropped += 1
                         continue
-                    batch = self._client_batch(int(c))
-                    loss, grads = self.grad_fn(self.params, batch)
-                    table = self._sketch(grads)
+                    batch, loss, grads, table = self._client_work(
+                        self.params, int(c))
                     losses.append(float(loss))
                     w = self._client_weight(int(c), batch)
                     if sample_health and fate == 0:
                         grad_acc = _add_weighted(grad_acc, grads, w)
-                    del grads
+                    del grads, batch
                     if fate == 1:
                         if self._is_async:
                             self.aggregator.submit(
@@ -663,9 +678,8 @@ class Orchestrator:
                 n_dropped += 1
                 continue
             delay = int(delays[slot])
-            batch = self._client_batch(int(c))
-            loss, grads = self.grad_fn(self.params, batch)
-            table = self._sketch(grads)
+            batch, loss, grads, table = self._client_work(self.params,
+                                                          int(c))
             prof = self.het.profile(int(c))
             # a "late" fate under the event clock is a transient slowdown:
             # this round the client computes (1 + delay)x slower
@@ -684,7 +698,7 @@ class Orchestrator:
                 h_tables.append(table)
                 h_weights.append(w)
                 grad_acc = _add_weighted(grad_acc, grads, w)
-            del grads
+            del grads, batch
             self._queue.push(simtime_lib.Event(
                 time=finish, round_produced=r, slot=slot, client=int(c),
                 produced=now, weight=w, loss=float(loss), table=table))

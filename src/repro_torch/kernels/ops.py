@@ -6,14 +6,15 @@ takes the plain PyTorch twin in ``ref``.  There is no implementation knob
 and no fallback from the card to the plain version.  (The reference's
 ``--sketch-impl`` and its TPU VMEM size gates have no counterpart here.)
 
-Telemetry: ``set_telemetry(tele)`` arms wall-clock spans around each
-dispatch when ``tele`` traces: ``kernel.<name>[cuda:<path>]`` on the card
-(the encode's path is ``binned`` or ``one_pass``, the fused estimate and
-selection's ``select``, the others' ``sm_90a``) and
-``kernel.<name>[torch:eager]`` on the CPU.  On the card each span starts
-on an idle device and waits for its output (``Span.sync``), so it times
-the kernel and its launch; with tracing off the dispatch adds nothing, no
-device sync included.
+Telemetry: ``set_telemetry(tele)`` arms a span around each dispatch when
+``tele`` traces: ``kernel.<name>[cuda:<path>]`` on the card (the encode's
+path is ``binned`` or ``one_pass``, the fused estimate and selection's
+``select``, the others' ``sm_90a``) and ``kernel.<name>[torch:eager]`` on
+the CPU.  A span adds no device sync: on the card its ``dur_s`` is the
+host's launch time and its ``dev_s`` the kernel's device time, from the
+CUDA events the span records around the launch (``obs.trace``), read
+once an enclosing span or ``close()`` has waited for the device.  With
+tracing off the dispatch adds nothing.
 """
 
 from __future__ import annotations
@@ -37,13 +38,10 @@ def set_telemetry(tele) -> None:
 
 
 def _span(name: str, operand: torch.Tensor, path: str = "sm_90a"):
-    """A live span only when tracing is on.  On the card it first waits
-    for the work already queued (a client's backward pass, say), so that
-    the span times this kernel and not what ran before it."""
+    """A live span only when tracing is on."""
     if not _TELE.trace_enabled:
         return obs.NULL_SPAN
     if operand.is_cuda:
-        torch.cuda.synchronize(operand.device)
         return _TELE.span(f"kernel.{name}[cuda:{path}]")
     return _TELE.span(f"kernel.{name}[torch:eager]")
 
@@ -65,16 +63,16 @@ def sketch_encode(values: torch.Tensor, offset: int, rows: int, cols: int,
     # the path only names the span: read the bin geometry only when tracing
     binned = (on_cuda and _TELE.trace_enabled
               and cuda_cs.bins().use(values.numel(), rows, cols))
-    with _span("encode", values, "binned" if binned else "one_pass") as sp:
-        return sp.sync(fn(values, offset, rows, cols, key, out=out))
+    with _span("encode", values, "binned" if binned else "one_pass"):
+        return fn(values, offset, rows, cols, key, out=out)
 
 
 def sketch_estimate(table: torch.Tensor, offset: int, n: int,
                     key: int = 0) -> torch.Tensor:
     on_cuda = _on_cuda(table)
     fn = cuda_cs.sketch_estimate if on_cuda else ref.sketch_estimate
-    with _span("estimate", table) as sp:
-        return sp.sync(fn(table, offset, n, key))
+    with _span("estimate", table):
+        return fn(table, offset, n, key)
 
 
 def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
@@ -82,8 +80,8 @@ def sketch_estimate_topk(table: torch.Tensor, offset: int, n: int, kk: int,
     """(values, local_idx) of the chunk's kk largest |estimate| ids."""
     on_cuda = _on_cuda(table)
     fn = cuda_cs.sketch_estimate_topk if on_cuda else ref.sketch_estimate_topk
-    with _span("estimate", table, "select") as sp:
-        return sp.sync(fn(table, offset, n, kk, key))
+    with _span("estimate", table, "select"):
+        return fn(table, offset, n, kk, key)
 
 
 def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,
@@ -91,8 +89,8 @@ def momentum_error(agg: torch.Tensor, su: torch.Tensor, se: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     on_cuda = _on_cuda(agg)
     fn = cuda_ss.momentum_error if on_cuda else ref.momentum_error
-    with _span("momentum_error", agg) as sp:
-        return sp.sync(fn(agg, su, se, lr, momentum))
+    with _span("momentum_error", agg):
+        return fn(agg, su, se, lr, momentum)
 
 
 def topk_mask(su: torch.Tensor, se: torch.Tensor, ids: torch.Tensor,
@@ -101,9 +99,9 @@ def topk_mask(su: torch.Tensor, se: torch.Tensor, ids: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     on_cuda = _on_cuda(su)
     fn = cuda_ss.topk_mask if on_cuda else ref.topk_mask
-    with _span("topk_mask", su) as sp:
-        return sp.sync(fn(su, se, ids, values, key, error_mode=error_mode,
-                          momentum_masking=momentum_masking))
+    with _span("topk_mask", su):
+        return fn(su, se, ids, values, key, error_mode=error_mode,
+                  momentum_masking=momentum_masking)
 
 
 def launch_counts() -> dict[str, int]:

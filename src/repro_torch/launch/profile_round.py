@@ -1,23 +1,17 @@
-"""Where the time of a full-width FetchSGD round goes on the card.
+"""Where the time of a full-width FetchSGD round goes on the card, read
+from the round's own spans.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_round [--rounds 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile_round \
+        [--config gpt2s-federated] [--clients 4] [--seq-len 256] [--rounds 3]
 
-Runs the round of ``train_lm.train`` with the ``--full`` settings
-(gpt2s-federated, 4 clients, seq 256, a 5 x 2**20 sketch, k = 25,000)
-phase by phase: ``--rounds`` rounds with a device sync after each phase,
-timed on the host clock, then one round under ``torch.profiler``.  Prints
-each phase's seconds per round (median over the timed rounds after the
-first), the device time by kernel, and the share of the profiled round's
-wall time in which the device ran a kernel or a copy.  The profiler's full
-table goes to ``--out``.
-
-It also splits the server's top-k (``core/topk.topk_from_sketch``) on the
-final error sketch with CUDA events: the per-chunk fused estimate and
-selection that ``topk_from_sketch`` runs (``estimate_select``), the final
-top-k over the candidate pool, and, as the yardstick of the fusion, the
-unfused per-chunk estimate kernels and the per-chunk ``torch.topk`` calls
-(with the ``abs`` they take) that it replaced; each group timed on its own
-behind a queued device sleep, the median of 5 repetitions.
+Drives ``Orchestrator`` rounds (round clock, flat, every client fresh: the
+benchmark's training path; PersonaLM clients, sketch 5 x 2**20, k 25,000)
+with tracing on and prints each span's host ms, device ms and host syncs a
+round, the mean of ``--rounds`` rounds after a warm-up one.  One more round
+runs under the profiler (host and device activity), and the device's idle
+time in it is put down to the innermost span open at the time, through the
+spans' ``t0_ns`` / ``t1_ns`` against the union of the trace's device
+intervals, or to no span.  ``time_topk`` then splits the server's top-k.
 """
 
 from __future__ import annotations
@@ -26,49 +20,53 @@ import argparse
 import collections
 import statistics
 import time
-from pathlib import Path
 
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, obs, resolve_device
 from repro_torch.core import fetchsgd as F
-from repro_torch.core import layout as layout_lib
 from repro_torch.core import topk as topk_lib
-from repro_torch.data import federated, synthetic
+from repro_torch.data import synthetic
+from repro_torch.fed import orchestrator as orch_lib
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.launch.train_lm import sync
-from repro_torch.models import transformer
 from repro_torch.optim import linear_decay
 
-PHASES = ("grad", "sketch", "mean", "server_step", "apply")
+
+def device_busy(prof) -> list[list[int]]:
+    """The union of the trace's device intervals (kernels, copies, sets)
+    on the profiler's clock, sorted."""
+    ivs = sorted((e.start_ns(), e.end_ns())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA
+                 and e.duration_ns() > 0)
+    busy: list[list[int]] = []
+    for s, e in ivs:
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    return busy
 
 
-def run_round(r, state, ctx, times):
-    """One round of ``train_lm.train``, each phase ended by a device sync
-    and its host time added to ``times``; returns the new server state."""
-    cfg, fs_cfg, params, lay, dataset, lr_fn, device = ctx
+def idle_s(busy, t0: int, t1: int) -> float:
+    """Seconds of [t0, t1] (ns) in no interval of ``busy``."""
+    covered = sum(max(0, min(e, t1) - max(s, t0)) for s, e in busy)
+    return max(0, t1 - t0 - covered) * 1e-9
 
-    def timed(name, fn):
-        t = time.perf_counter()
-        out = fn()
-        sync(device)
-        times[name] += time.perf_counter() - t
-        return out
 
-    tables = []
-    for c in federated.sample_clients(dataset.n_clients, 4, r):
-        batch = federated.to_batch(dataset.client_batch(int(c)), device)
-        _, g = timed("grad", lambda: transformer.value_and_grad(
-            params, batch, cfg, remat=False))
-        tables.append(timed("sketch", lambda: F.sketch_grads(g, lay,
-                                                             fs_cfg)))
-        del g
-    agg = timed("mean", lambda: sum(tables) / len(tables))
-    lr = torch.full((), lr_fn(r), dtype=torch.float32, device=device)
-    delta, state = timed("server_step", lambda: F.server_step(
-        agg, state, lr, lay, fs_cfg))
-    timed("apply", lambda: F.apply_delta(params, lay, delta))
-    return state
+def idle_by_span(spans: list[dict], busy, t0: int, t1: int) -> dict:
+    """Device idle seconds of [t0, t1] by the innermost span open at the
+    time; ``(no span)`` outside every span."""
+    def own(sp, depth):
+        return idle_s(busy, sp["t0_ns"], sp["t1_ns"]) - sum(
+            idle_s(busy, k["t0_ns"], k["t1_ns"]) for k in spans
+            if k["depth"] == depth and sp["t0_ns"] <= k["t0_ns"]
+            and k["t1_ns"] <= sp["t1_ns"])
+    out = collections.Counter()
+    for sp in spans:
+        out[sp["name"]] += own(sp, sp["depth"] + 1)
+    out["(no span)"] = own({"t0_ns": t0, "t1_ns": t1}, 0)
+    return out
 
 
 def device_ms(fn, reps: int = 5) -> float:
@@ -122,61 +120,61 @@ def time_topk(table, lay, k: int, key: int = 0) -> dict[str, float]:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="gpt2s-federated")
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--out", default="chiprun_out/profile_round.txt")
     args = ap.parse_args(argv)
-    device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = configs.get_config("gpt2s-federated")
-    fs_cfg = F.FetchSGDConfig(rows=5, cols=1 << 20, k=25_000, momentum=0.9)
-    params = transformer.init_params(cfg, seed=0, device=device)
-    lay = layout_lib.build_layout(params)
-    total = args.rounds + 1
-    dataset = synthetic.PersonaLM(vocab=cfg.vocab, seq_len=256,
-                                  n_clients=total * 4)
-    ctx = (cfg, fs_cfg, params, lay, dataset, linear_decay(0.16, total),
-           device)
-    state = F.init_state(fs_cfg, device)
-    per_round = []
-    for r in range(args.rounds):
-        times = collections.Counter()
-        state = run_round(r, state, ctx, times)
-        per_round.append(times)
-    steady = per_round[1:] or per_round
-    print(f"{torch.cuda.get_device_name(0)}; phase seconds per round "
-          f"(median of rounds 1..{len(per_round) - 1}):")
-    for name in PHASES:
-        print(f"  {name:12s} {statistics.median(t[name] for t in steady):.6f}")
-    print(f"  {'round':12s} "
-          f"{statistics.median(sum(t.values()) for t in steady):.6f}")
-    parts = time_topk(state.error_sketch, lay, fs_cfg.k, fs_cfg.hash_key)
-    print(f"server top-k on the error sketch, device ms ({parts['chunks']} "
-          f"chunks, median of 5):")
-    for name in ("estimate_select", "estimate", "chunk_topk", "final_topk"):
-        print(f"  {name:12s} {parts[name]:.6f}")
-
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t = time.perf_counter()
-        run_round(args.rounds, state, ctx, collections.Counter())
-        wall = time.perf_counter() - t
-    events = prof.key_averages()
-    # device-side entries only: an operator's entry repeats its kernels'
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled round: wall {wall:.6f} s, device busy "
-          f"{busy_us / 1e6:.6f} s ({busy_us / 1e6 / wall:.1%}), idle share "
-          f"{1 - busy_us / 1e6 / wall:.1%}")
-    print("device time by kernel (ms, launches):")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-        print(f"  {e.self_device_time_total / 1e3:10.3f} {e.count:6d}  "
-              f"{e.key[:90]}")
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(events.table(sort_by="self_device_time_total",
-                                row_limit=60))
+    cfg = configs.get_config(args.config)
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    orch = orch_lib.Orchestrator(
+        cfg, F.FetchSGDConfig(rows=5, cols=1 << 20, k=25_000, momentum=0.9),
+        orch_lib.FederationConfig(rounds=10**6,
+                                  clients_per_round=args.clients),
+        synthetic.PersonaLM(vocab=cfg.vocab, seq_len=args.seq_len,
+                            n_clients=17_568),
+        lr_fn=linear_decay(0.16, 10**6), device=resolve_device(None),
+        telemetry=tele, health_every=0)
+    marks = []                           # time_ns before each round
+    for r in range(args.rounds + 1):
+        marks.append(time.time_ns())
+        orch.run_round(r)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        marks.append(time.time_ns())
+        orch.run_round(args.rounds + 1)
+        torch.cuda.synchronize()
+        marks.append(time.time_ns())
+    tele.close()
+    spans = [e for e in sink.events if e["type"] == "span"]
+    per = collections.defaultdict(collections.Counter)
+    for e in spans:
+        if marks[1] <= e["t0_ns"] < marks[-2]:     # rounds 1..n
+            per[e["name"]].update(n=1, host=e["dur_s"], dev=e["dev_s"],
+                                  syncs=e["syncs"])
+    n = args.rounds
+    print(f"{torch.cuda.get_device_name(0)}; {args.config}, {args.clients} "
+          f"clients at seq {args.seq_len}; spans a round (mean of rounds "
+          f"1..{n}): count, host ms, device ms, syncs")
+    for name, p in per.items():
+        print(f"  {name:20s} {p['n'] / n:5.1f} {p['host'] / n * 1e3:10.3f} "
+              f"{p['dev'] / n * 1e3:10.3f} {p['syncs'] / n:6.1f}")
+    busy = device_busy(prof)
+    t0, t1 = marks[-2], marks[-1]
+    idle = idle_by_span([e for e in spans if e["t0_ns"] >= t0], busy, t0, t1)
+    print(f"profiled round: wall {(t1 - t0) * 1e-9:.6f} s, device idle "
+          f"{idle_s(busy, t0, t1):.6f} s; idle s by the innermost span:")
+    for name, s in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:20s} {s:.6f}")
+    parts = time_topk(orch.opt_state.error_sketch, orch.layout,
+                      orch.fs_cfg.k, orch.fs_cfg.hash_key)
+    print(f"server top-k on the error sketch, device ms "
+          f"({parts.pop('chunks')} chunks, median of 5):")
+    for name, ms in parts.items():
+        print(f"  {name:12s} {ms:.6f}")
 
 
 if __name__ == "__main__":

@@ -394,8 +394,9 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, remat: bool = True):
     is checkpointed (the reference checkpoints the blocks and chunks
     always; here they follow ``remat``, and no number depends on it).
     The callers that the reference runs with ``remat=False`` pass it: the
-    orchestrator's clients (``fed.orchestrator``), the main path
-    (``launch.train_lm``) and its profiler (``launch.profile_round``)."""
+    orchestrator's clients (``fed.orchestrator``, which
+    ``launch.profile_round`` drives) and the main path
+    (``launch.train_lm``)."""
     h, aux = _backbone_train(params, batch, cfg, remat)
     labels = batch["labels"]
     if cfg.frontend == "vision":             # no loss on the patch prefix

@@ -9,12 +9,15 @@ sinks.  The hot-path contract:
   expensive derivations with (norms, dense references, histograms).
 * ``tele.counter/gauge/histogram`` return live instruments (no-op
   versions on the disabled singleton ``NOOP`` — same API, no state).
-* ``tele.span(name)`` returns ``NULL_SPAN`` unless tracing is on.
+* ``tele.span(name)`` returns ``NULL_SPAN`` unless tracing is on; a live
+  span's event carries host time, profiler-clock stamps and, on a CUDA
+  run, device time and a count of host syncs (``obs.trace``).
 * ``tele.emit(type, **fields)`` stamps ``t`` (seconds since telemetry
   construction — monotonic, so event ordering survives clock steps) and
   fans out to every sink.
-* ``tele.close()`` emits one final ``metrics`` snapshot event and closes
-  the sinks; safe to call twice.
+* ``tele.close()`` emits the spans still waiting for their device time,
+  one final ``metrics`` snapshot event, and closes the sinks; safe to
+  call twice.
 
 Observability must never perturb the simulation: nothing here touches
 any RNG, and instruments only *read* run state.  The determinism test in
@@ -30,7 +33,7 @@ import time
 
 from . import metrics as metrics_lib
 from . import sinks as sinks_lib
-from .trace import NULL_SPAN, Span
+from .trace import NULL_SPAN, DeviceClock, Span
 
 
 def env_fingerprint() -> dict:
@@ -58,6 +61,7 @@ class Telemetry:
         self.trace_enabled = bool(trace)
         self.metrics = metrics_lib.MetricsRegistry()
         self._span_stack: list[Span] = []
+        self._clock: DeviceClock | None = None   # made on a CUDA run
         self._t0 = time.perf_counter()
         self._closed = False
 
@@ -98,6 +102,9 @@ class Telemetry:
         if self._closed:
             return
         self._closed = True
+        if self._clock is not None:
+            for ev in self._clock.ready("wait"):
+                self.emit("span", **ev)
         snap = self.metrics.snapshot()
         self.emit("metrics", **snap)
         for s in self.sinks:
@@ -169,7 +176,8 @@ def add_cli_flags(ap) -> None:
     ap.add_argument("--metrics", default=None, metavar="PATH.jsonl",
                     help="emit telemetry events as JSONL to this path")
     ap.add_argument("--trace", action="store_true",
-                    help="emit wall-clock tracing spans (device-synced), "
+                    help="emit tracing spans (host time, profiler-clock "
+                         "stamps; on the card device time and host syncs), "
                          "kernel launches included")
     ap.add_argument("--obs-summary", action="store_true",
                     help="print a telemetry summary to stdout at exit")

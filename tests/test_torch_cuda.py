@@ -23,6 +23,8 @@ bit for bit.  Its plain twin, ``torch.topk``, breaks ties its own way, so
 it is held to the same ids above the kk-th magnitude and as many at it.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -315,13 +317,16 @@ def test_dispatch_sends_the_fused_selection_to_its_kernel(dev):
     table = torch.randn(3, 256, device=dev)
     ops.reset_launch_counts()
     sink = obs.MemorySink()
-    ops.set_telemetry(obs.Telemetry([sink], trace=True))
+    tele = obs.Telemetry([sink], trace=True)
+    ops.set_telemetry(tele)
     try:
         vals, idx = ops.sketch_estimate_topk(table, 0, 1000, 64)
     finally:
         ops.set_telemetry(None)
+        tele.close()          # the span waits for its device time till here
     assert ops.launch_counts()["estimate"] == 1 and vals.is_cuda
-    assert [e["name"] for e in sink.events] == ["kernel.estimate[cuda:select]"]
+    assert [e["name"] for e in sink.events if e["type"] == "span"] \
+        == ["kernel.estimate[cuda:select]"]
 
 
 @pytest.mark.parametrize("rows,cols", [(3, 130), (5, 1 << 20), (1, 7)])
@@ -640,8 +645,140 @@ def test_span_sync_waits_for_the_card(dev):
         pass
     unsynced_done = torch.cuda.current_stream().query()
     torch.cuda.synchronize()
-    durs = {e["name"]: e["dur_s"] for e in sink.events}
+    tele.close()              # the unsynced span's device time is read here
+    durs = {e["name"]: e["dur_s"] for e in sink.events if e["type"] == "span"}
     assert durs["synced"] > 0.03 > durs["unsynced"] and not unsynced_done
+
+
+def _span_events(sink):
+    return {e["name"]: e for e in sink.events if e["type"] == "span"}
+
+
+def test_span_device_time_and_stamps_match_the_kernel(dev):
+    """A span around a kernel and a sync: ``dev_s`` within 10% of the
+    kernel's time between CUDA events, and the profiler's device interval
+    of the kernel, and its host interval of the product, inside the span's
+    ``t0_ns`` / ``t1_ns``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    x = torch.randn(4096, 4096, device=dev)
+    (x @ x).sum()
+    torch.cuda.synchronize()
+    # each timing behind a queued device sleep: the host is ahead of the
+    # card, so the events bracket the kernel and not its launch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    y = x @ x
+    end.record()
+    torch.cuda.synchronize()
+    kernel_s = start.elapsed_time(end) * 1e-3
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(50_000_000)
+        t_sleep = time.time_ns()
+        with tele.span("matmul") as sp:
+            y = sp.sync(x @ x)
+    ev = _span_events(sink)["matmul"]
+    assert ev["dev_s"] == pytest.approx(kernel_s, rel=0.1)
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and e.duration_ns() > 0]
+    assert kernels and y.shape == x.shape
+    # the sleep was launched before the span: only its end lies inside
+    for k in kernels:
+        assert k.end_ns() <= ev["t1_ns"]
+        if k.start_ns() > t_sleep:
+            assert ev["t0_ns"] <= k.start_ns() < k.end_ns()
+    matmul = [k for k in kernels if "sleep" not in k.name()
+              and "spin" not in k.name()]
+    assert matmul and all(ev["t0_ns"] <= k.start_ns() for k in matmul)
+    (mm,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::mm"]
+    assert ev["t0_ns"] <= mm.start_ns() < mm.end_ns() <= ev["t1_ns"]
+    tele.close()
+
+
+def test_span_counts_host_syncs_not_its_own(dev):
+    """``.item()`` inside a span is one sync; a launch is none; the span's
+    own wait for the device is not counted.  The check is armed only while
+    a span is open."""
+    from repro_torch import obs
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    x = torch.ones(1000, device=dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    with tele.span("item"):
+        assert torch.cuda.get_sync_debug_mode() == 1
+        x.sum().item()
+    with tele.span("launch") as sp:
+        sp.sync(x * 2)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    tele.close()
+    ev = _span_events(sink)
+    assert (ev["item"]["syncs"], ev["launch"]["syncs"]) == (1, 0)
+    assert ev["item"]["dev_s"] >= 0 and ev["launch"]["dev_s"] >= 0
+
+
+def _micro_round(dev, tele, clients=3):
+    """Round 0 of a micro flat federation of ``clients`` on the card."""
+    from repro_torch import fed
+    from repro_torch.launch import simulate
+    cfg = simulate.micro_cfg()
+    orch = fed.Orchestrator(
+        cfg, F.FetchSGDConfig(rows=3, cols=1 << 12, k=64),
+        fed.FederationConfig(rounds=2, clients_per_round=clients, seed=1),
+        simulate.micro_dataset(cfg), device=dev, telemetry=tele,
+        health_every=0)
+    return orch.run_round(0)
+
+
+def test_micro_round_syncs_are_the_codes(dev):
+    """A micro round's ``fed.round`` counts three syncs a client: the two
+    copies of its tokens and labels from pageable host memory
+    (``federated.to_batch``, ``non_blocking=False``) and ``float(loss)``;
+    and three in the server update: the chunk tables that
+    ``topk.global_ids`` (offsets) and ``topk.apply_delta`` (leaf, start)
+    build with ``torch.tensor(list, device=...)``, each a pageable copy.
+    Each client's three spans carry its id, the batch span both copies,
+    the gradient and sketch spans none."""
+    from repro_torch import obs
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    rec = _micro_round(dev, tele)
+    tele.close()
+    spans = [e for e in sink.events if e["type"] == "span"]
+    (rnd,) = [e for e in spans if e["name"] == "fed.round"]
+    assert rnd["syncs"] == 3 * len(rec.cohort) + 3 and rec.n_dropped == 0
+    syncs = {e["name"]: e["syncs"] for e in spans if e["depth"] == 1}
+    assert syncs == {"fed.clients": 3 * len(rec.cohort),
+                     "fed.aggregate": 0, "fed.server_update": 3}
+    for step, n in (("batch", 2), ("grad", 0), ("sketch", 0)):
+        got = [e for e in spans if e["name"] == f"fed.client.{step}"]
+        assert [e["client"] for e in got] == rec.cohort
+        assert all(e["syncs"] == n and e["dev_s"] >= 0 for e in got)
+    (clients,) = [e for e in spans if e["name"] == "fed.clients"]
+    assert sum(e["dev_s"] for e in spans if e["name"] in (
+        "fed.client.grad", "fed.client.sketch")) <= clients["dur_s"]
+
+
+def test_untraced_round_records_no_event_and_arms_no_check(dev, monkeypatch):
+    """With tracing off a round makes no CUDA event and never touches the
+    sync check."""
+    from repro_torch import obs
+
+    def refuse(*a, **k):
+        raise AssertionError("touched with tracing off")
+    _micro_round(dev, None)                    # build and warm first
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", refuse)
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", refuse)
+    for tele in (None, obs.Telemetry([obs.MemorySink()])):
+        assert _micro_round(dev, tele).n_fresh == 3
 
 
 def test_recovery_error_on_the_card_matches_the_cpu(dev):

@@ -23,6 +23,7 @@ import importlib.util
 import io
 import json
 import math
+import warnings
 from pathlib import Path
 
 import jax
@@ -224,6 +225,133 @@ def test_noop_and_spans():
     assert spans["boom"]["error"] == "RuntimeError"
     assert [e["type"] for e in sink.events].count("metrics") == 1
     assert obs.trace.cuda_device({"a": [x, (x, 1)], "b": None}) is None
+
+
+def test_span_stamps_hold_the_profilers_interval():
+    """``t0_ns`` / ``t1_ns`` are on the clock of the profiler's events: they
+    hold the interval of an aten op run inside the span.  A CPU run's span
+    carries no ``dev_s`` or ``syncs``."""
+    from torch.profiler import ProfilerActivity, profile
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    x = torch.randn(256, 256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tele.span("mm"):
+            x @ x
+    (ev,) = sink.events
+    (op,) = [e for e in prof.profiler.kineto_results.events()
+             if e.name() == "aten::mm"]
+    assert ev["t0_ns"] <= op.start_ns() < op.end_ns() <= ev["t1_ns"]
+    assert ev["t1_ns"] - ev["t0_ns"] >= 1e9 * ev["dur_s"] / 2
+    assert "dev_s" not in ev and "syncs" not in ev
+    assert obs.validate_events(sink.events) == []
+
+
+class _FakeCard:
+    """Stands in for ``torch.cuda`` in the span machinery: events stamped
+    1 ms apart in record order, done once the card has been synchronised
+    past them; the sync check's mode recorded, and each sync (the
+    telemetry's own included) raising torch's warning."""
+
+    def __init__(self, monkeypatch):
+        card = self
+        self.recorded, self.done, self.modes = 0, 0, [0]
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                assert enable_timing
+                self.at = None
+
+            def record(self):
+                card.recorded += 1
+                self.at = card.recorded
+
+            def query(self):
+                return self.at <= card.done
+
+            def synchronize(self):
+                card.done = max(card.done, self.at)
+
+            def elapsed_time(self, end):
+                assert self.query() and end.query(), "not done"
+                return float(end.at - self.at)
+
+        for name, fn in dict(
+                is_initialized=lambda: True, Event=Event,
+                synchronize=lambda dev=None: self.sync(),
+                get_sync_debug_mode=lambda: self.modes[-1],
+                set_sync_debug_mode=self.modes.append).items():
+            monkeypatch.setattr(torch.cuda, name, fn)
+        monkeypatch.setattr(obs.trace, "cuda_device",
+                            lambda x: "cuda:0" if x is self else None)
+
+    def sync(self):
+        warnings.warn(f"{obs.trace.SYNC_WARNING} (Triggered internally)")
+        self.done = self.recorded
+
+
+def test_device_time_waits_for_a_sync_and_syncs_are_counted(monkeypatch):
+    """On a CUDA run a span's device time is read at the exit of the next
+    span that waits for the device, or at ``close()``, and never forces a
+    sync; each span counts the syncs made inside it, not the telemetry's
+    own; the check is armed only while an outermost span is open."""
+    card = _FakeCard(monkeypatch)
+    sink = obs.MemorySink()
+    tele = obs.Telemetry([sink], trace=True)
+    names = lambda: [e["name"] for e in sink.events]    # noqa: E731
+    with warnings.catch_warnings(record=True) as shown:
+        warnings.simplefilter("default")
+        with tele.span("round", round=4):
+            assert card.modes[-1] == "warn"
+            with tele.span("clients") as sp:
+                with tele.span("grad", client=7):
+                    card.sync()                 # the program's: counted
+                    card.sync()
+                assert names() == []            # waits for its events
+                with tele.span("sketch", client=7):
+                    pass
+                sp.sync(card)                   # the telemetry's own
+            assert names() == ["grad", "sketch", "clients"]
+            warnings.warn("another warning")
+        assert card.modes[-1] == 0
+        assert [str(w.message) for w in shown] == ["another warning"]
+    # the outermost span's end is not done at its exit: it waits, and so
+    # does a later one, until close()
+    with tele.span("late"):
+        pass
+    assert names() == ["grad", "sketch", "clients"]
+    assert card.done < card.recorded
+    tele.close()
+    assert [e.get("name", e["type"]) for e in sink.events] == [
+        "grad", "sketch", "clients", "round", "late", "metrics"]
+    ev = {e["name"]: e for e in sink.events if e["type"] == "span"}
+    assert [ev[n]["syncs"] for n in ("grad", "sketch", "clients", "round")] \
+        == [2, 0, 2, 2]
+    assert ev["grad"]["client"] == 7 and ev["round"]["round"] == 4
+    # records 1 ms apart: round, clients, grad x2, sketch x2, clients, round
+    assert ev["grad"]["dev_s"] == ev["sketch"]["dev_s"] == 1e-3
+    assert (ev["clients"]["dev_s"], ev["round"]["dev_s"]) == (5e-3, 7e-3)
+    assert ev["grad"]["t"] < ev["sketch"]["t"] < ev["clients"]["t"] \
+        < ev["round"]["t"] < ev["late"]["t"]
+    assert obs.validate_events(sink.events) == []
+
+
+def test_profile_round_puts_idle_time_down_to_the_innermost_span():
+    """Idle device time inside a span's stamps and outside its children's
+    counts for the span; outside every span, for ``(no span)``."""
+    from repro_torch.launch import profile_round as pr
+
+    def sp(name, depth, t0, t1):
+        return dict(name=name, depth=depth, t0_ns=t0, t1_ns=t1)
+    spans = [sp("fed.client.grad", 2, 10, 40),
+             sp("fed.client.sketch", 2, 40, 60),
+             sp("fed.clients", 1, 10, 60), sp("fed.round", 0, 0, 100)]
+    busy = [[15, 30], [45, 50], [70, 80]]
+    idle = pr.idle_by_span(spans, busy, 0, 120)
+    want = {"fed.client.grad": 15, "fed.client.sketch": 15,
+            "fed.clients": 0, "fed.round": 40, "(no span)": 20}
+    assert idle == pytest.approx({k: v * 1e-9 for k, v in want.items()})
+    assert pr.idle_s(busy, 0, 120) == pytest.approx(90e-9)
 
 
 def test_kernel_spans_only_when_tracing():
@@ -435,10 +563,27 @@ def test_spans_and_health(micro, runs, case):
         if h["recovery_rel_err"] is not None:
             assert math.isfinite(h["recovery_rel_err"])
             assert 0.0 <= h["heavy_hitter_overlap"] <= 1.0
-    names = [e["name"] for e in of_type(events, "span")]
+    spans = of_type(events, "span")
+    names = [e["name"] for e in spans]
+    port_only = ("kernel.", "fed.client.")
     ref_names = [e["name"] for e in of_type(runs[case]["ref"], "span")
-                 if not e["name"].startswith("kernel.")]
-    assert [n for n in names if not n.startswith("kernel.")] == ref_names
+                 if not e["name"].startswith(port_only)]
+    assert [n for n in names if not n.startswith(port_only)] == ref_names
+    # one batch, gradient and sketch span a computing client, in that
+    # order, sharing its id: every client not dropped at dispatch is
+    # computed within the run (async on the round clock, or the event
+    # clock's full drain under tree)
+    steps = [e for e in spans if e["name"].startswith("fed.client.")]
+    recs = runs[case]["inst"].records
+    assert len(steps) == 3 * sum(len(r.cohort) - r.n_dropped for r in recs)
+    cohorts = {c for r in recs for c in r.cohort}
+    for i in range(0, len(steps), 3):
+        part = steps[i:i + 3]
+        assert [e["name"] for e in part] == [
+            "fed.client.batch", "fed.client.grad", "fed.client.sketch"]
+        assert part[0]["client"] == part[1]["client"] \
+            == part[2]["client"] in cohorts
+        assert all("dev_s" not in e and "syncs" not in e for e in part)
     # the CPU dispatches to the plain twins: one estimate a chunk for each
     # server update and each health sample that compared a table
     n_chunks = TL.build_layout(params_from_numpy(micro[2], "cpu")).num_chunks
