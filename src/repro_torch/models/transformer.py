@@ -242,9 +242,23 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
 
 
 def _index(tree, i: int):
+    """Unit ``i``'s tree of a tree of stacked leaves: a ``leaf[i]`` select
+    on each (the serve path, which runs under no autograd)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` per-unit trees of a tree of stacked ``(n, ...)`` leaves,
+    each leaf split once with ``torch.unbind`` (the train path).  The
+    backward then has one ``UnbindBackward`` a leaf, which stacks the
+    units' gradients in a single write; a ``leaf[u]`` select a unit would
+    fill a full-size zero tensor for each unit and add the ``n`` up."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[u] for k, v in per.items()} for u in range(n)]
+    return torch.unbind(tree, 0)
 
 
 def _unembed_p(params: dict) -> dict:
@@ -311,8 +325,7 @@ def _encoder(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     enc = params["enc"]
     pos = torch.arange(x.shape[1], device=x.device)[None]
-    for u in range(cfg.enc_layers):
-        mp = _index(enc["units"]["m0"], u)
+    for mp in _unbind(enc["units"]["m0"], cfg.enc_layers):
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
         x = x + attention.attn_forward(mp["attn"], h, cfg, pos, causal=False,
                                        use_rope=False, remat=remat)
@@ -360,8 +373,8 @@ def _backbone_train(params: dict, batch: dict, cfg: ArchConfig,
     x = x.to(RESIDUAL_DTYPE)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     sliced = tp.splits(cfg.d_model)
-    for u in range(cfg.n_units):
-        args = (_index(params["units"], u), cfg, positions, enc_out, remat)
+    for unit_p in _unbind(params["units"], cfg.n_units):
+        args = (unit_p, cfg, positions, enc_out, remat)
         if not (remat and torch.is_grad_enabled()):
             x, a = _unit(x, *args)
         elif sliced:
