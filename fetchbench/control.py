@@ -29,8 +29,10 @@ from fetchbench import harness
 
 
 def fed_readings(cell: harness.Cell, seed: int, device) -> dict:
+    from fetchbench import reference
     from fetchbench.reference import federated
-    args = (cell.config, cell.workload, seed, device)
+    args = (reference.family(cell.config, cell.root), cell.config,
+            cell.workload, seed, device)
     ref = federated.run(*args)
     out = {}
     for name, kw in (("control", {"lowp": True}),
@@ -46,14 +48,13 @@ def serve_readings(cell: harness.Cell, seed: int, device) -> dict:
     import torch
 
     from fetchbench.entries import serve
-    from fetchbench.reference import dense_lm
     s = serve.Session(cell, seed, device, False)
     for _ in range(cell.workload["check_calls"]):
         s.step()
     calls = s.calls
     s.release()
-    flat = dense_lm.init_flat(s.spec, s.cfg, seed, device)
-    P = dense_lm.leaves(flat, s.spec)
+    flat = s.fam.init_flat(s.spec, s.cfg, seed, device)
+    P = s.fam.leaves(flat, s.spec)
     controls = {"control_tf32": {"lowp": True},
                 "control_fp8kv": {"kv_dtype": torch.float8_e4m3fn}}
     out: dict = {}
@@ -65,12 +66,12 @@ def serve_readings(cell: harness.Cell, seed: int, device) -> dict:
 
     for c in calls:
         prompt, served = s.prompts(c["call"]), c["tokens"]
-        ref = serve.served_logits(P, prompt, served, s.cfg)
+        ref = serve.served_logits(s.fam, P, prompt, served, s.cfg)
         take("program", serve.gaps(ref, served, c["logits"]))
         take("altered", serve.gaps(ref, (served + 1) % s.cfg["vocab"],
                                    c["logits"]))
         for name, kw in controls.items():
-            ctl = serve.served_logits(P, prompt, served, s.cfg, **kw)
+            ctl = serve.served_logits(s.fam, P, prompt, served, s.cfg, **kw)
             take(name, serve.gaps(ref, ctl.argmax(dim=-1), ctl[:, -1]))
             del ctl
         del ref

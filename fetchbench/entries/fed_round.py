@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import sys
 
-from fetchbench import harness
-from fetchbench.reference import dense_lm, federated
+from fetchbench import harness, reference
+from fetchbench.reference import federated
 from fetchbench.traffic import persona
 
 CHECKED_ROUNDS = 3
@@ -30,11 +30,12 @@ class Session:
         self.cfg, self.wl, self.seed = cell.config, cell.workload, seed
         self.device = device
         t, sk = self.wl["traffic"], self.wl["sketch"]
-        model_cfg = harness.arch_config(self.cfg)
-        self.spec = dense_lm.param_spec(self.cfg)
+        fam = self.fam = reference.family(self.cfg, cell.root)
+        model_cfg = harness.arch_config(self.cfg, fam)
+        self.spec = fam.param_spec(self.cfg)
         harness.check_tree(model_cfg, self.spec)
-        self.flat = dense_lm.init_flat(self.spec, self.cfg, seed, device)
-        params = harness.tree(dense_lm.leaves(self.flat, self.spec))
+        self.flat = fam.init_flat(self.spec, self.cfg, seed, device)
+        params = harness.tree(fam.leaves(self.flat, self.spec))
         self.data = persona.from_workload(self.wl, self.cfg["vocab"], seed)
         self.sink = obs.MemorySink() if traced else None
         tele = obs.Telemetry([self.sink], trace=True) if traced else None
@@ -53,8 +54,9 @@ class Session:
             losses.append(self.orch.run_round(r).loss)
             if r == 0:
                 state = self.orch.opt_state.momentum_sketch.cpu()
-        flat0 = dense_lm.init_flat(self.spec, self.cfg, seed, device)
-        change = federated.change_norms(self.flat, flat0, self.spec)
+        flat0 = fam.init_flat(self.spec, self.cfg, seed, device)
+        change = federated.change_norms(self.flat, flat0,
+                                        fam.leaf_spans(self.spec))
         del flat0
         self.readings = federated.Readings(losses, state, change)
         self.round = CHECKED_ROUNDS
@@ -88,8 +90,8 @@ class Session:
         harness.free_device(self.device)
 
     def check(self) -> dict:
-        ref = federated.run(self.cfg, self.wl, self.seed, self.device,
-                            CHECKED_ROUNDS)
+        ref = federated.run(self.fam, self.cfg, self.wl, self.seed,
+                            self.device, CHECKED_ROUNDS)
         for side, r in (("program", self.readings), ("reference", ref)):
             print(federated.describe(side, r), file=sys.stderr)
         print(f"details {federated.details(self.readings, ref)}",

@@ -16,8 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fetchbench import harness
-from fetchbench.reference import dense_lm
+from fetchbench import harness, reference
 from fetchbench.traffic import prompts
 
 
@@ -29,12 +28,13 @@ class Session:
         self.serve = serve_lm.serve
         self.cfg, self.wl, self.seed = cell.config, cell.workload, seed
         self.device = device
-        self.model_cfg = harness.arch_config(self.cfg)
-        self.spec = dense_lm.param_spec(self.cfg)
+        fam = self.fam = reference.family(self.cfg, cell.root)
+        self.model_cfg = harness.arch_config(self.cfg, fam)
+        self.spec = fam.param_spec(self.cfg)
         harness.check_tree(self.model_cfg, self.spec)
-        self.flat = dense_lm.init_flat(self.spec, self.cfg, seed, device)
-        self.params = harness.tree(dense_lm.leaves(self.flat, self.spec))
-        self.cache_dtype = dense_lm.cache_dtype(self.cfg)
+        self.flat = fam.init_flat(self.spec, self.cfg, seed, device)
+        self.params = harness.tree(fam.leaves(self.flat, self.spec))
+        self.cache_dtype = fam.cache_dtype(self.cfg)
         self.calls: list[dict] = []
         self._call(0)                       # warm-up: builds every kernel
         self.calls = []
@@ -90,25 +90,26 @@ class Session:
         return [others[i] for i in sorted(pick)] + self.calls[-1:]
 
     def check(self) -> dict:
-        flat = dense_lm.init_flat(self.spec, self.cfg, self.seed, self.device)
-        P = dense_lm.leaves(flat, self.spec)
+        flat = self.fam.init_flat(self.spec, self.cfg, self.seed,
+                                  self.device)
+        P = self.fam.leaves(flat, self.spec)
         out = {"token_gap": 0.0, "logit_err": 0.0}
         for c in self.sample():
-            ref = served_logits(P, self.prompts(c["call"]), c["tokens"],
-                                self.cfg)
+            ref = served_logits(self.fam, P, self.prompts(c["call"]),
+                                c["tokens"], self.cfg)
             for k, v in gaps(ref, c["tokens"], c["logits"]).items():
                 out[k] = max(out[k], v)
             del ref
         return out
 
 
-def served_logits(P: dict, prompt: torch.Tensor, served: torch.Tensor,
+def served_logits(fam, P: dict, prompt: torch.Tensor, served: torch.Tensor,
                   cfg: dict, **lowp) -> torch.Tensor:
     """The reference's logits (B, T, V) at the T positions that chose the
     served tokens: the prompt's last and each served token's but the
-    last."""
+    last; ``fam`` the configuration's reference family."""
     seq = torch.cat([prompt.to(served.device), served[:, :-1]], dim=1)
-    return dense_lm.serve_logits(P, seq, prompt.shape[1] - 1, cfg, **lowp)
+    return fam.serve_logits(P, seq, prompt.shape[1] - 1, cfg, **lowp)
 
 
 def gaps(ref: torch.Tensor, served: torch.Tensor, last: torch.Tensor

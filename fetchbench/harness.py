@@ -4,10 +4,11 @@ profiler trace to busy time, kernel times and idle gaps.
 
 A cell is found from ``BENCHMARK.json`` alone: its workload file
 ``workloads/<cell>.json`` names its entry kind (``entries/<kind>.py``) and
-its configuration (``configs`` in the manifest names the file); its
+its configuration (``configs`` in the manifest names the file), whose
+``family`` names its plain reference (``reference/<family>.py``); its
 metrics are the manifest's, and each per-layer metric is read by
-``metrics/<metric>.py``.  Adding a cell, a configuration or a metric is
-adding files and entries.
+``metrics/<metric>.py``.  Adding a cell, a configuration, a family or a
+metric is adding files and entries.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ class Cell:
     config: dict         # the configuration's file
     end_to_end: list     # the manifest's metrics this cell reports
     per_layer: list
+    root: Path           # the benchmark's root, where its files are found
 
 
 def reports(metric: dict, cell: str) -> bool:
@@ -94,7 +96,7 @@ def find_cell(man: dict, name: str, root: Path = ROOT) -> Cell:
     per = [m for m in man["per_layer"]
            if (name in m["workloads"] if "workloads" in m
                else m["moves"] in e2e_names)]
-    return Cell(name, entry, wl, cfg, e2e, per)
+    return Cell(name, entry, wl, cfg, e2e, per, root)
 
 
 def entry_module(kind: str):
@@ -114,20 +116,27 @@ def metric_reader(name: str, root: Path = ROOT):
 
 # -- the program's configuration -----------------------------------------------------
 
-ARCH_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab",
-             "act", "rope_theta", "norm_eps", "tie_embeddings",
-             "param_dtype")
+# keys of a configuration file that say what it is, where it comes from
+# and how it was cut, and set no width of either side
+DESCRIPTIVE = ("arch", "source", "family", "reduced", "published", "assumed",
+               "precision")
 
 
-def arch_config(cfg: dict):
-    """The port's ArchConfig of a configuration file: the port's
-    architecture with every size the file states."""
-    import dataclasses as dc
-
+def arch_config(cfg: dict, fam):
+    """The port's ArchConfig of a configuration file: the registry's
+    ``arch`` with every field the file states.  A key that is no field,
+    not one the family ``fam`` reads and not descriptive is refused, so
+    that no width the file states leaves the program on the registry's
+    value while the reference reads the file's."""
     from repro_torch import configs
-    base = configs.get_config(cfg["arch"])
-    return dc.replace(base, **{k: cfg[k] for k in ARCH_KEYS},
-                      head_dim=cfg.get("head_dim", 0))
+    from repro_torch.models.config import ArchConfig
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    unread = sorted(set(cfg) - fields - set(fam.READS) - set(DESCRIPTIVE))
+    if unread:
+        raise ValueError(f"{cfg.get('arch')}: keys {unread} are read by "
+                         f"neither the program nor the reference")
+    return dataclasses.replace(configs.get_config(cfg["arch"]),
+                               **{k: cfg[k] for k in fields & set(cfg)})
 
 
 def check_tree(model_cfg, spec) -> None:

@@ -5,13 +5,12 @@ The work, from the layout and not from the implementation: each client's
 d float32 gradient values read once and its rows x cols float32 table
 written once, at the H100's 3.35 TB/s."""
 
-from fetchbench.reference import dense_lm
-
 KERNELS = ("one_pass_kernel", "partition_kernel", "accumulate_kernel")
 
 
-def bytes_per_client(cfg: dict, sketch: dict) -> int:
-    d = dense_lm.n_params(dense_lm.param_spec(cfg))
+def bytes_per_client(fam, cfg: dict, sketch: dict) -> int:
+    """``fam``: the configuration's reference family."""
+    d = fam.n_params(fam.param_spec(cfg))
     return 4 * d + 4 * sketch["rows"] * sketch["cols"]
 
 
@@ -19,5 +18,6 @@ def read(ctx):
     t = sum(s for n, s in ctx.kernels.items() if any(k in n for k in KERNELS))
     if t <= 0 or not ctx.clients:
         return None
-    need = len(ctx.clients) * bytes_per_client(ctx.config, ctx.cell["sketch"])
+    need = len(ctx.clients) * bytes_per_client(ctx.family, ctx.config,
+                                               ctx.cell["sketch"])
     return 100.0 * need / ctx.peaks["hbm_bytes"] / t

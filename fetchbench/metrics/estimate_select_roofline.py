@@ -6,14 +6,15 @@ The work, from the layout: for each selection chunk, the rows x cols
 float32 table read once and its kk candidates (a float32 value and an
 int64 index each) written once, at the H100's 3.35 TB/s."""
 
-from fetchbench.reference import dense_lm, sketch
+from fetchbench.reference import sketch
 
 KERNELS = ("estimate_hist_kernel", "refine_kernel", "tile_count_kernel",
            "tile_write_kernel")
 
 
-def bytes_per_round(cfg: dict, sk: dict) -> int:
-    spans = sketch.chunks(dense_lm.param_spec(cfg))
+def bytes_per_round(fam, cfg: dict, sk: dict) -> int:
+    """``fam``: the configuration's reference family."""
+    spans = sketch.chunks(fam.param_spec(cfg))
     table = 4 * sk["rows"] * sk["cols"]
     return sum(table + 12 * sketch.chunk_k(sk["k"], n, len(spans))
                for _, n in spans)
@@ -23,5 +24,6 @@ def read(ctx):
     t = sum(s for n, s in ctx.kernels.items() if any(k in n for k in KERNELS))
     if t <= 0 or not ctx.rounds:
         return None
-    need = ctx.rounds * bytes_per_round(ctx.config, ctx.cell["sketch"])
+    need = ctx.rounds * bytes_per_round(ctx.family, ctx.config,
+                                        ctx.cell["sketch"])
     return 100.0 * need / ctx.peaks["hbm_bytes"] / t

@@ -35,6 +35,12 @@ from torch.utils import checkpoint
 BF16 = torch.bfloat16
 F32 = torch.float32
 LOSS_ROWS = 4096      # tokens per checkpointed cross-entropy block
+# keys of a configuration file read here and not by the program, which
+# runs RMS norms and rotary positions without biases
+READS = ("norm", "positions", "bias")
+# micro widths, for the CPU tests
+MICRO = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2,
+         "head_dim": 16, "d_ff": 128, "vocab": 256}
 
 
 def check_family(cfg: dict) -> None:

@@ -16,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from fetchbench.reference import dense_lm, sketch
+from fetchbench.reference import sketch
 from fetchbench.traffic import persona
 
 
@@ -37,23 +37,27 @@ def lr_at(wl: dict, r: int) -> float:
     return float(peak * np.maximum(total - f(r), f(0)) / total)
 
 
-def leaf_norms(vec: torch.Tensor, spec) -> dict:
+def leaf_norms(vec: torch.Tensor, leaf_spans) -> dict:
+    """Each leaf's norm, over ``(path, offset, size)``."""
     return {p: float(torch.linalg.vector_norm(vec[o:o + n]))
-            for p, o, n in dense_lm.leaf_spans(spec)}
+            for p, o, n in leaf_spans}
 
 
-def change_norms(flat: torch.Tensor, flat0: torch.Tensor, spec) -> dict:
+def change_norms(flat: torch.Tensor, flat0: torch.Tensor, leaf_spans
+                 ) -> dict:
     return {p: float(torch.linalg.vector_norm(flat[o:o + n] - flat0[o:o + n]))
-            for p, o, n in dense_lm.leaf_spans(spec)}
+            for p, o, n in leaf_spans}
 
 
-def run(cfg: dict, wl: dict, seed: int, device, n_rounds: int = 3,
+def run(fam, cfg: dict, wl: dict, seed: int, device, n_rounds: int = 3,
         lowp: bool = False, half_batch: bool = False) -> Readings:
-    spec = dense_lm.param_spec(cfg)
+    """The first ``n_rounds`` rounds of the workload on the configuration
+    of the reference family ``fam``."""
+    spec = fam.param_spec(cfg)
     spans = sketch.chunks(spec)
     data = persona.from_workload(wl, cfg["vocab"], seed)
     sk, t = wl["sketch"], wl["traffic"]
-    flat = dense_lm.init_flat(spec, cfg, seed, device)
+    flat = fam.init_flat(spec, cfg, seed, device)
     server = sketch.Server(sk["rows"], sk["cols"], sk["k"], sk["momentum"],
                            spans, device)
     losses, state, grad = [], None, None
@@ -80,13 +84,13 @@ def run(cfg: dict, wl: dict, seed: int, device, n_rounds: int = 3,
             if half_batch:
                 keep = (tok.shape[0] + 1) // 2
                 tok, lab = tok[:keep], lab[:keep]
-            loss, g = dense_lm.loss_and_grad(flat, spec, tok, lab, cfg, lowp)
+            loss, g = fam.loss_and_grad(flat, spec, tok, lab, cfg, lowp)
             round_losses.append(loss)
             gsum = g if gsum is None else gsum.add_(g)
             del g
         mean = gsum.div_(len(cohort))
         if r == 0:
-            grad = leaf_norms(mean, spec)
+            grad = leaf_norms(mean, fam.leaf_spans(spec))
         t0 = lap("clients", t0)
         table = sketch.sketch(mean, spans, sk["rows"], sk["cols"])
         del gsum, mean
@@ -96,8 +100,8 @@ def run(cfg: dict, wl: dict, seed: int, device, n_rounds: int = 3,
         if r == 0:
             state = server.su.cpu()
         losses.append(sum(round_losses) / len(round_losses))
-    flat0 = dense_lm.init_flat(spec, cfg, seed, device)
-    change = change_norms(flat, flat0, spec)
+    flat0 = fam.init_flat(spec, cfg, seed, device)
+    change = change_norms(flat, flat0, fam.leaf_spans(spec))
     print("reference seconds " + " ".join(f"{k} {v:.2f}"
                                           for k, v in times.items()),
           file=sys.stderr)

@@ -33,7 +33,7 @@ from pathlib import Path  # noqa: E402
 if __package__ in (None, ""):           # run as a file: the repo on the path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fetchbench import harness  # noqa: E402
+from fetchbench import harness, reference  # noqa: E402
 
 GIB = 1 << 30
 
@@ -112,7 +112,8 @@ def run(args, device=None, root: Path = harness.ROOT,
         trace = harness.reduce_trace(prof)
         del prof
         ctx = types.SimpleNamespace(
-            cell=cell.workload, config=cell.config, window_s=elapsed,
+            cell=cell.workload, config=cell.config,
+            family=reference.family(cell.config, cell.root), window_s=elapsed,
             busy_s=trace.busy_s, kernels=trace.kernels,
             peaks=harness.PEAKS, **session.layer_stats())
         for m in cell.per_layer:

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from fetchbench.tests.util import ROOT
-from fetchbench import harness
+from fetchbench import harness, reference
 from fetchbench import run as run_mod
 
 MAN = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -87,8 +87,8 @@ def test_config_file_matches_its_entry(cfg):
     assert data["reduced"] == cfg["reduced"]
     assert set(data["reduced"]) <= set(data)
     assert any(cfg["name"] == w["config"] for w in MAN["workloads"])
-    from fetchbench.reference import dense_lm
-    harness.check_tree(harness.arch_config(data), dense_lm.param_spec(data))
+    fam = reference.family(data)
+    harness.check_tree(harness.arch_config(data, fam), fam.param_spec(data))
 
 
 def _digest(root):
@@ -96,14 +96,18 @@ def _digest(root):
             for p in sorted((root / "fetchbench").rglob("*")) if p.is_file()}
 
 
-def test_cells_added_as_files_alone_are_picked_up(micro_root, tmp_path):
+def _copy(tmp_path):
     import shutil
-
-    from fetchbench.tests.util import add_micro_cells
     root = tmp_path / "copy"
     shutil.copytree(ROOT / "fetchbench", root / "fetchbench",
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    return root
+
+
+def test_cells_added_as_files_alone_are_picked_up(micro_root, tmp_path):
+    from fetchbench.tests.util import add_micro_cells
+    root = _copy(tmp_path)
     before = _digest(root)
     mirrors = add_micro_cells(root)
     after = _digest(root)
@@ -114,6 +118,41 @@ def test_cells_added_as_files_alone_are_picked_up(micro_root, tmp_path):
         assert c.config["d_model"] == 64
         assert [m["name"] for m in c.per_layer] == \
             [m["name"] for m in harness.find_cell(man, real, root).per_layer]
+
+
+TWIN = '''"""A family for the benchmark's tests: the dense decoder's
+reference under another name."""
+from fetchbench.reference.dense_lm import *  # noqa: F401,F403
+'''
+
+
+def test_a_family_added_as_files_alone_runs(tmp_path):
+    """A family module, a configuration naming it and a training and a
+    serving cell on it, added as new files and entries: both cells run
+    on the reference the configuration names and come out correct."""
+    from fetchbench.tests.util import add_micro_cells
+    root = _copy(tmp_path)
+    before = _digest(root)
+    (root / "fetchbench" / "reference" / "dense_lm_twin.py").write_text(TWIN)
+    mirrors = add_micro_cells(root, prefix="twin", family="dense_lm_twin")
+    after = _digest(root)
+    assert all(after[p] == h for p, h in before.items())
+    man = harness.manifest(root)
+    kinds = {}
+    for cell in mirrors:
+        c = harness.find_cell(man, cell, root)
+        assert c.config["family"] == "dense_lm_twin"
+        assert reference.family(c.config, root).__file__ == \
+            str(root / "fetchbench" / "reference" / "dense_lm_twin.py")
+        kinds.setdefault(c.workload["entry"], cell)
+    assert set(kinds) == {"fed_round", "serve"}
+    for cell in kinds.values():
+        args = types.SimpleNamespace(workload=cell, seed=2**31 + 13,
+                                     seconds=0.2, trace=0)
+        with open("/dev/null", "w") as log:
+            out = run_mod.run(args, device=torch.device("cpu"), root=root,
+                              log=log)
+        assert out["correct"] is True, (cell, out["checks"])
 
 
 @pytest.mark.parametrize("trace", [0, 1])

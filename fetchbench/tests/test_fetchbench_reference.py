@@ -8,19 +8,21 @@ import json
 import pytest
 import torch
 
-from fetchbench import harness
+from fetchbench import harness, reference
 from fetchbench.reference import dense_lm, sketch
-from fetchbench.tests.util import MICRO, ROOT
+from fetchbench.tests.util import ROOT
 from repro_torch.core import count_sketch, hashing, layout, topk
 from repro_torch.models import transformer
 
-CONFIGS = {n: json.loads((ROOT / "fetchbench" / "configs" / f"{n}.json")
-                         .read_text())
-           for n in ("gpt2s-federated", "internlm2-1.8b")}
+CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text())
+           for c in json.loads((ROOT / "BENCHMARK.json").read_text())
+           ["configs"]}
 
 
 def micro(name):
-    return dict(CONFIGS[name], **MICRO)
+    """The configuration at its family's micro widths, and the family."""
+    fam = reference.family(CONFIGS[name])
+    return dict(CONFIGS[name], **fam.MICRO), fam
 
 
 @pytest.mark.parametrize("cols", [1 << 20, 4096, 1_000_003])
@@ -50,11 +52,13 @@ def test_sketch_and_estimate_match_the_program():
 @pytest.mark.parametrize("name", CONFIGS)
 def test_chunks_match_the_programs_layout(name):
     cfg = CONFIGS[name]
-    meta = transformer.init_params(harness.arch_config(cfg), device="meta")
+    fam = reference.family(cfg)
+    meta = transformer.init_params(harness.arch_config(cfg, fam),
+                                   device="meta")
     lay = layout.build_layout(meta)
-    assert sketch.chunks(dense_lm.param_spec(cfg)) == \
+    assert sketch.chunks(fam.param_spec(cfg)) == \
         [(c.offset, c.size) for c in lay.chunks]
-    assert lay.total == dense_lm.n_params(dense_lm.param_spec(cfg))
+    assert lay.total == fam.n_params(fam.param_spec(cfg))
 
 
 @pytest.mark.parametrize("n_leaves", [3, 70])
@@ -75,21 +79,21 @@ def test_top_k_matches_the_program(n_leaves):
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_train_loss_and_grads_match_the_program(name):
-    cfg = micro(name)
-    spec = dense_lm.param_spec(cfg)
-    mcfg = harness.arch_config(cfg)
+    cfg, fam = micro(name)
+    spec = fam.param_spec(cfg)
+    mcfg = harness.arch_config(cfg, fam)
     harness.check_tree(mcfg, spec)
-    flat = dense_lm.init_flat(spec, cfg, 5, "cpu")
+    flat = fam.init_flat(spec, cfg, 5, "cpu")
     gen = torch.Generator().manual_seed(3)
     tok = torch.randint(0, cfg["vocab"], (3, 24), generator=gen)
     lab = torch.randint(0, cfg["vocab"], (3, 24), generator=gen)
-    loss, grad = dense_lm.loss_and_grad(flat, spec, tok, lab, cfg)
-    params = harness.tree(dense_lm.leaves(flat, spec))
+    loss, grad = fam.loss_and_grad(flat, spec, tok, lab, cfg)
+    params = harness.tree(fam.leaves(flat, spec))
     ploss, pgrads = transformer.value_and_grad(
         params, {"tokens": tok, "labels": lab}, mcfg, remat=False)
     assert abs(loss - float(ploss)) <= 1e-6 * abs(loss)
     for (path, g), (ppath, pg) in zip(
-            dense_lm.leaves(grad, spec).items(), layout.flatten(pgrads)):
+            fam.leaves(grad, spec).items(), layout.flatten(pgrads)):
         assert path == ppath
         torch.testing.assert_close(g, pg, rtol=0,
                                    atol=1e-4 * float(pg.abs().max()))
@@ -98,11 +102,11 @@ def test_train_loss_and_grads_match_the_program(name):
 @pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", CONFIGS)
 def test_served_logits_match_the_program(name, cache):
-    cfg = micro(name)
-    spec = dense_lm.param_spec(cfg)
-    mcfg = harness.arch_config(cfg)
-    flat = dense_lm.init_flat(spec, cfg, 6, "cpu")
-    P = dense_lm.leaves(flat, spec)
+    cfg, fam = micro(name)
+    spec = fam.param_spec(cfg)
+    mcfg = harness.arch_config(cfg, fam)
+    flat = fam.init_flat(spec, cfg, 6, "cpu")
+    P = fam.leaves(flat, spec)
     params = harness.tree(P)
     gen = torch.Generator().manual_seed(4)
     tok = torch.randint(0, cfg["vocab"], (2, 20), generator=gen)
@@ -112,13 +116,13 @@ def test_served_logits_match_the_program(name, cache):
     for t in range(12, 20):
         logits, c = transformer.decode_step(params, tok[:, t:t + 1], mcfg, c)
         got.append(logits)
-    want = dense_lm.serve_logits(P, tok, 11, cfg, kv_dtype=cache)
+    want = fam.serve_logits(P, tok, 11, cfg, kv_dtype=cache)
     torch.testing.assert_close(torch.stack(got, 1), want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
 
 
 def test_init_is_the_seeds_and_scaled_by_leaf():
-    cfg = micro("internlm2-1.8b")
+    cfg = dict(CONFIGS["internlm2-1.8b"], **dense_lm.MICRO)
     spec = dense_lm.param_spec(cfg)
     a = dense_lm.init_flat(spec, cfg, 2**31 + 9, "cpu")
     assert torch.equal(a, dense_lm.init_flat(spec, cfg, 2**31 + 9, "cpu"))
@@ -157,9 +161,9 @@ def test_roofline_byte_hand_counts():
     sk = {"rows": 5, "cols": 1 << 20, "k": 25000}
     d = 123_551_232
     enc = _metric("encode_roofline").__globals__["bytes_per_client"]
-    assert enc(cfg, sk) == 4 * d + 4 * 5 * (1 << 20)
+    assert enc(dense_lm, cfg, sk) == 4 * d + 4 * 5 * (1 << 20)
     est = _metric("estimate_select_roofline").__globals__["bytes_per_round"]
     spans = sketch.chunks(dense_lm.param_spec(cfg))
     assert len(spans) <= 64
-    assert est(cfg, sk) == sum(4 * 5 * (1 << 20) + 12 * min(25000, n)
+    assert est(dense_lm, cfg, sk) == sum(4 * 5 * (1 << 20) + 12 * min(25000, n)
                                for _, n in spans)

@@ -10,21 +10,24 @@ for p in (ROOT, ROOT / "src"):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
-MICRO = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2,
-         "head_dim": 16, "d_ff": 128, "vocab": 256}
+from fetchbench import reference  # noqa: E402
 
 
-def add_micro_cells(root: Path) -> dict:
+def add_micro_cells(root: Path, prefix: str = "micro",
+                    family: str | None = None) -> dict:
     """Micro configurations and cells beside the real ones, each with a
-    real cell's traffic, sketch and limits at micro sizes: new files and
-    new entries only.  Returns {micro cell: the real cell it mirrors}."""
+    real cell's traffic, sketch and limits at its family's micro widths
+    (``family``: naming another family in place of the real one): new
+    files and new entries only.  Returns {micro cell: the real cell it
+    mirrors}."""
     man = json.loads((root / "BENCHMARK.json").read_text())
     bench = root / "fetchbench"
     mirrors = {}
     for c in list(man["configs"]):
         cfg = json.loads((root / c["file"]).read_text())
-        cfg.update(MICRO)
-        name = f"micro-{c['name']}"
+        cfg.update(reference.family(cfg, root).MICRO)
+        cfg["family"] = family or cfg["family"]
+        name = f"{prefix}-{c['name']}"
         (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         man["configs"].append(dict(c, name=name,
                                    file=f"fetchbench/configs/{name}.json"))
@@ -37,8 +40,8 @@ def add_micro_cells(root: Path) -> dict:
             wl["sketch"].update(cols=4096, k=64)
         else:
             t.update(batch=4, prompt_len=32, new_tokens=16)
-        name = f"micro-{w['name']}"
-        wl["config"] = f"micro-{w['config']}"
+        name = f"{prefix}-{w['name']}"
+        wl["config"] = f"{prefix}-{w['config']}"
         (bench / "workloads" / f"{name}.json").write_text(json.dumps(wl))
         man["workloads"].append(dict(w, name=name, config=wl["config"]))
         for m in man["end_to_end"] + man["per_layer"]:
