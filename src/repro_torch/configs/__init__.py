@@ -1,7 +1,7 @@
 """Architecture registry (port of ``repro.configs``).
 
 The zoo and the paper's own model, ``gpt2s-federated``, in the
-reference's order.
+reference's order, and the port's own ``EXTRA``.
 ``get_config(name)`` returns the full ArchConfig; ``get_smoke(name)`` the
 reduced same-family variant.
 """
@@ -27,12 +27,18 @@ ARCHS = (
     "gpt2s-federated",
 )
 
-_MOD = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
+# The port's configurations beyond the reference's zoo: resolved by name,
+# not listed, so that ``list_archs()`` stays the zoo the reference has.
+EXTRA = ("moonlight-16b-a3b",)
+
+_MOD = {name: name.replace("-", "_").replace(".", "_")
+        for name in ARCHS + EXTRA}
 
 
 def _module(name: str):
     if name not in _MOD:
-        raise KeyError(f"unknown arch {name!r}; available: {list(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{list(ARCHS + EXTRA)}")
     return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
 
 

@@ -347,13 +347,14 @@ class Orchestrator:
 
     def _client_work(self, params: dict, c: int) -> tuple:
         """(batch, loss, grads, table) of client ``c`` against ``params``,
-        each step in its ``fed.client.*`` span; the loss stays on the
-        device.  Callers drop the batch and gradients before the next
-        client's, as the peak memory is the backward pass's."""
+        each step in its ``fed.client.*`` span (the gradient's with the
+        model's block spans inside); the loss stays on the device.
+        Callers drop the batch and gradients before the next client's, as
+        the peak memory is the backward pass's."""
         span = self.tele.span
         with span("fed.client.batch", client=c):
             batch = self._client_batch(c)
-        with span("fed.client.grad", client=c):
+        with span("fed.client.grad", client=c), transformer.traced(self.tele):
             loss, grads = self.grad_fn(params, batch)
         with span("fed.client.sketch", client=c):
             table = self._sketch(grads)

@@ -1,5 +1,6 @@
 """GQA attention: RoPE, qk-norm, sliding window, chunked softmax, KV
-cache, and whisper's cross-attention.
+cache, and whisper's cross-attention; and latent attention (MLA) on the
+train path.
 
 Port of ``repro.models.attention``.  Weights keep
 the reference's layout: ``wq/wk/wv`` are ``(d, heads, hd)`` and ``wo`` is
@@ -79,9 +80,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def _block(qc, qp, kf, vf, k_pos, *, causal: bool, window: int,
            prep, scale: float, partial: bool = False):
-    """One query block: (B, c, H, hd) from q (B, c, KV, G, hd);
-    ``partial``: q and k hold a slice of head_dim, and the scores are
-    summed over the model group."""
+    """One query block: (B, c, H, dv) from q (B, c, KV, G, hd) and v of
+    head dim dv (MLA's is narrower than its queries'); ``partial``: q and
+    k hold a slice of head_dim, and the scores are summed over the model
+    group."""
     B, c, KV, G, hd = qc.shape
     s = torch.einsum("bqkgh,bskh->bkgqs", qc, kf)
     s = (tp.reduce_from(s) if partial else s) * scale
@@ -93,7 +95,7 @@ def _block(qc, qp, kf, vf, k_pos, *, causal: bool, window: int,
     s = torch.where(ok[:, None, None], s, NEG_INF)
     p = prep(torch.softmax(s, dim=-1))
     o = torch.einsum("bkgqs,bskh->bqkgh", p, vf)
-    return o.reshape(B, c, KV * G, hd)
+    return o.reshape(B, c, KV * G, vf.shape[-1])
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -241,6 +243,37 @@ def attn_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
                 chunk=cfg.attn_chunk, compute_dtype=cfg.attn_compute_dtype,
                 remat=remat)
     return _out_tp(p, o, cfg, par)
+
+
+def mla_forward(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                positions: torch.Tensor, remat: bool = False
+                ) -> torch.Tensor:
+    """Latent attention (DeepSeek-V3's MLA, no query LoRA) over the full
+    causal sequence for training; x: (B, S, d), positions: (S,) or (B, S).
+
+    ``wq`` gives each head's query, ``qk_nope_head_dim`` plain dims then
+    ``qk_rope_head_dim`` rotary ones; ``wkv_a`` the latent ``c``
+    (``kv_lora_rank``) and one rotary key ``k_r`` shared by every head;
+    ``wkv_b`` maps ``rmsnorm(c)`` to each head's plain key and its value
+    (``v_head_dim``).  The key is ``[k_nope, k_r]``, the softmax's scale
+    the query's head dim to the -1/2, and ``wo`` maps the heads' values
+    back to d.  RoPE in the port's layout (the two halves of the rotary
+    dims)."""
+    B, S, _ = x.shape
+    H, r, dn = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    positions = positions.expand(B, S)
+    q = layers.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = torch.cat([q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)],
+                  dim=-1)
+    kva = layers.matmul(x, p["wkv_a"])
+    c = layers.rmsnorm(p["kv_norm"], kva[..., :r], cfg.norm_eps)
+    k_r = rope(kva[..., None, r:], positions, cfg.rope_theta)
+    kv = layers.einsum("bsr,rhk->bshk", c, p["wkv_b"])
+    k = torch.cat([kv[..., :dn], k_r.expand(B, S, H, -1)], dim=-1)
+    o = _attend(q, k, kv[..., dn:], positions, positions, causal=True,
+                window=0, chunk=cfg.attn_chunk,
+                compute_dtype=cfg.attn_compute_dtype, remat=remat)
+    return _out(p, o)
 
 
 def _as_stored(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,13 @@ Port of ``repro.models.config``: a model is ``n_layers`` units of
 ``unit_pattern``, with parameters stacked on a leading ``(n_units,)`` dim
 as in the reference.  Heterogeneous architectures (jamba's mamba and
 attention interleave, llama4's dense and MoE alternation, xLSTM's mLSTM
-and sLSTM mix) are expressed through the pattern.  Every field keeps the
-reference's name and default.
+and sLSTM mix) are expressed through the pattern.  Every field of the
+reference keeps its name and default.
+
+The port's own fields (latent attention, leading dense layers, the
+sigmoid-routed expert layer that holds a share of the experts) default
+to values that leave every model of the reference's zoo as it is: a
+configuration takes their paths only by stating them.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str          # attn | mamba | mlstm | slstm
+    kind: str          # attn | mla | mamba | mlstm | slstm
     moe: bool = False  # MoE FFN instead of the dense FFN
     ffn: bool = True   # has an FFN sub-block (xLSTM blocks have none)
 
@@ -44,6 +49,21 @@ class ArchConfig:
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    router_score: str = "softmax"  # softmax: top-k with capacity (drops);
+                                   # sigmoid: top-k of score + a selection
+                                   # bias, dropless (``moe.moe_apply_held``)
+    routed_scale: float = 1.0      # sigmoid: gates scaled after normalising
+    experts_held: int = 0          # sigmoid: routed experts held here, ids
+                                   # 0 .. experts_held-1 (0: all n_experts)
+    # leading dense layers (DeepSeek-V3's first_k_dense_replace): the
+    # unit's attention kind with a dense FFN of width d_ff, held outside
+    # the stacked units
+    first_dense_layers: int = 0
+    # latent attention (MLA, kind "mla"), no query LoRA
+    kv_lora_rank: int = 0          # 0: no MLA
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
     # SSM (mamba)
     ssm_d_state: int = 16
     ssm_conv: int = 4
@@ -72,14 +92,41 @@ class ArchConfig:
     loss_chunk: int = 512      # sequence-block size for chunked xent
 
     def __post_init__(self):
-        if self.n_layers % len(self.unit_pattern) != 0:
+        stacked = self.n_layers - self.first_dense_layers
+        if stacked % len(self.unit_pattern) != 0:
             raise ValueError(
-                f"{self.name}: n_layers {self.n_layers} not divisible by "
-                f"unit length {len(self.unit_pattern)}")
+                f"{self.name}: n_layers {self.n_layers} less "
+                f"{self.first_dense_layers} leading dense layers not "
+                f"divisible by unit length {len(self.unit_pattern)}")
+        if self.router_score not in ("softmax", "sigmoid"):
+            raise ValueError(f"{self.name}: unknown router_score "
+                             f"{self.router_score!r}")
+        if self.router_score == "softmax" and (
+                self.experts_held or self.routed_scale != 1.0):
+            raise ValueError(f"{self.name}: experts_held and routed_scale "
+                             f"belong to the sigmoid router")
+        if self.router_score == "sigmoid" and self.router_aux_coef:
+            raise ValueError(f"{self.name}: the sigmoid router has no "
+                             f"auxiliary loss (router_aux_coef 0)")
+        if not 0 <= self.experts_held <= self.n_experts:
+            raise ValueError(f"{self.name}: experts_held "
+                             f"{self.experts_held} of {self.n_experts}")
+        mla = any(s.kind == "mla" for s in self.unit_pattern)
+        dims = (self.kv_lora_rank, self.qk_nope_head_dim,
+                self.qk_rope_head_dim, self.v_head_dim)
+        if mla != bool(self.kv_lora_rank) or (mla and min(dims) <= 0):
+            raise ValueError(f"{self.name}: an mla unit needs kv_lora_rank "
+                             f"and its head dims, and only it reads them")
 
     @property
     def n_units(self) -> int:
-        return self.n_layers // len(self.unit_pattern)
+        return (self.n_layers - self.first_dense_layers) \
+            // len(self.unit_pattern)
+
+    @property
+    def held(self) -> int:
+        """Routed experts whose weights this model holds."""
+        return self.experts_held or self.n_experts
 
     @property
     def hd(self) -> int:

@@ -20,6 +20,12 @@ in training).
 Shared experts (qwen2-moe) are a dense swiglu MLP of width
 ``n_shared * moe_d_ff`` over every token, added to the routed output.
 
+The sigmoid router (``cfg.router_score == "sigmoid"``, DeepSeek-V3's
+``noaux_tc`` with one group) has its own layer, ``moe_apply_held``:
+dropless, and holding only the routed experts ``0 .. cfg.held - 1`` of
+the ``n_experts`` it routes over, one chip's share of an expert-parallel
+layer without the exchange.
+
 Under ``tp.model_parallel`` the experts' FFN width is split over the
 model group when ``param_spec`` splits it: every rank routes the same
 tokens with the replicated router, its experts compute their slice of
@@ -39,8 +45,16 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import obs
+
 from . import layers, tp
 from .config import ArchConfig
+
+
+# Standard deviation of the selection bias's draw (``init_params``): a
+# tenth of the scores' spread at initialisation, enough that selection by
+# score + bias and by score alone differ on a visible share of tokens.
+BIAS_INIT = 0.02
 
 
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -219,3 +233,63 @@ def moe_apply_local(p: dict, x: torch.Tensor, cfg: ArchConfig):
     if par:
         out_e = tp.reduce_from(out_e)
     return _combine(out_e, slot, gate, probs, eidx, p, xt, x, cfg)
+
+
+def route_sigmoid(p: dict, xt: torch.Tensor, cfg: ArchConfig):
+    """The sigmoid router of tokens xt (T, d): (picked experts (T, K),
+    their gates (T, K), float32)."""
+    scores = torch.sigmoid(xt.to(torch.float32)
+                           @ p["router"].to(torch.float32))        # (T, E)
+    bias = p["e_score_correction_bias"].detach().to(torch.float32)
+    eidx = torch.topk(scores.detach() + bias, cfg.expert_top_k,
+                      dim=-1).indices
+    picked = scores.gather(1, eidx)
+    return eidx, picked / (picked.sum(-1, keepdim=True) + 1e-20) \
+        * cfg.routed_scale
+
+
+def moe_apply_held(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                   span=obs.NULL_SPAN):
+    """The sigmoid-routed, dropless expert layer over this model's held
+    experts; x: (B, S, d) -> (out (B, S, d), aux loss 0).
+
+    Scores ``s = sigmoid(x @ router)`` in float32 over all ``n_experts``;
+    each token picks the ``expert_top_k`` largest ``s + bias`` (the
+    selection bias ``e_score_correction_bias`` has no gradient); its
+    gates are the picked scores over their sum, held or not, times
+    ``routed_scale``.  The (token, pick) pairs whose expert is held are
+    sorted by expert, each held expert runs its SwiGLU on exactly its
+    rows, and the gated outputs go back to their tokens; the shared
+    experts are added for every token.  What the experts held elsewhere
+    would add is left out.
+
+    The held experts' row counts are read to the host once a call (one
+    sync) to size their products; ``span`` (a live ``model.moe`` span or
+    the null one) records ``held_rows``, the pairs computed, and
+    ``max_rows``, the most rows of one expert."""
+    B, S, d = x.shape
+    T, K = B * S, cfg.expert_top_k
+    xt = x.reshape(T, d)
+    eidx, gate = route_sigmoid(p, xt, cfg)
+    ef = eidx.reshape(-1)                                          # (T*K,)
+    # a scatter, not bincount, whose size check would sync a second time
+    counts = ef.new_zeros(cfg.n_experts).scatter_add_(
+        0, ef, torch.ones_like(ef))[:cfg.held].tolist()
+    n_held = sum(counts)
+    pairs = torch.argsort(ef, stable=True)[:n_held]   # token * K + pick
+    xin = xt[pairs // K]
+    wg, wu, wd = (torch.unbind(p[k], 0) for k in ("w_gate", "w_up", "w_down"))
+    outs = [layers.matmul(F.silu(layers.matmul(xe, wg[e]))
+                          * layers.matmul(xe, wu[e]), wd[e])
+            for e, xe in enumerate(xin.split(counts)) if len(xe)]
+    y = xt.new_zeros(T * K, d, dtype=torch.float32)
+    if outs:
+        out = torch.cat(outs) * gate.reshape(-1)[pairs, None]
+        y = y.index_copy(0, pairs, out.to(y.dtype))
+    y = y.reshape(T, K, d).sum(dim=1)
+    if "shared" in p:
+        y = y + layers.mlp(p["shared"], xt, "swiglu",
+                           d_ff=cfg.n_shared_experts * _ffe(cfg))
+    span.set(held_rows=n_held, max_rows=max(counts, default=0))
+    return y.reshape(B, S, d), torch.zeros((), dtype=torch.float32,
+                                           device=x.device)

@@ -71,7 +71,11 @@ def _batch_size(mesh) -> int:
 
 def param_spec(path: str, shape: tuple[int, ...], cfg: ArchConfig,
                mesh) -> tuple:
-    """The spec of one parameter leaf, keyed by its path."""
+    """The spec of one parameter leaf, keyed by its path.  A model with
+    latent attention (MLA) has no mesh layout and is refused."""
+    if cfg.kv_lora_rank or cfg.first_dense_layers:
+        raise NotImplementedError(f"{cfg.name}: no mesh layout for latent "
+                                  f"attention (MLA) or leading dense layers")
     name = path.split("/")[-1]
     stacked = path.startswith("units/") or path.startswith("enc/units/")
     lead = (None,) if stacked else ()

@@ -8,7 +8,10 @@ stub frontends join the token stream as the reference's do: ``audio``
 bidirectional encoder whose output every decoder attention member
 cross-attends to; ``vision`` (pixtral) takes precomputed patch embeddings
 (B, n_patches, d), projected and put before the tokens (prefix fusion;
-no loss on the prefix).  Parameters are the
+no loss on the prefix).  A model with ``first_dense_layers`` holds them
+outside the stacked units, under ``lead`` (stacked on their own leading
+dim): the unit's attention kind with a dense FFN of width ``d_ff``, run
+before the units.  Parameters are the
 reference's tree (nested dicts with units stacked on a leading
 ``(n_units,)`` dim), so the flat layout, and with it every sketch hash,
 matches the JAX package.
@@ -42,6 +45,16 @@ Entry points:
 * ``init_cache``, ``prefill`` — forward over the prompt, filling the cache
 * ``decode_step`` — one token against the cache, with no host sync
 
+Latent attention (MLA) runs on the train path only: its serving needs a
+latent KV cache the port does not have, so the serve entry points refuse
+such a model.
+
+Spans: inside ``traced(tele)`` (the orchestrator's clients) with tracing
+on, each forward of an MLA block opens a ``model.mla`` span and each
+forward of a sigmoid-routed expert layer a ``model.moe`` span, with the
+layer's index; the backward passes are not spanned.  With tracing off a
+span costs one attribute check.
+
 Inside ``tp.model_parallel`` the serve path runs tensor-parallel too:
 each rank holds its ``param_spec`` shard of the parameters and its
 ``cache_spec`` slice of the cache (``init_cache(model=)``), the blocks
@@ -51,15 +64,18 @@ over the group.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils import checkpoint
 
+from repro_torch import obs
 from repro_torch.core import layout as layout_lib
 
 from . import attention, layers, moe, sharding, ssm, tp, xlstm
 from .config import ArchConfig, LayerSpec
 
-KINDS = ("attn", "mamba", "mlstm", "slstm")
+KINDS = ("attn", "mla", "mamba", "mlstm", "slstm")
 # The train path's residual between units: bfloat16, as the reference
 # carries it.  A parity test may set float32 to compare two orders of
 # summation (tensor-parallel against whole) without bfloat16 roundings.
@@ -70,6 +86,41 @@ def _check_kinds(cfg: ArchConfig) -> None:
     for spec in cfg.unit_pattern:
         if spec.kind not in KINDS:
             raise ValueError(f"unknown unit kind {spec.kind!r}")
+
+
+# The telemetry the model's block spans go to, innermost ``traced`` last.
+_TELE: list = [obs.NOOP]
+
+
+@contextlib.contextmanager
+def traced(tele):
+    """Open the model's block spans (``model.mla``, ``model.moe``) on
+    ``tele`` while inside; the spans are live only when ``tele`` traces."""
+    _TELE.append(tele)
+    try:
+        yield
+    finally:
+        _TELE.pop()
+
+
+def _span(name: str, layer: int):
+    tele = _TELE[-1]
+    if not tele.trace_enabled:
+        return obs.NULL_SPAN
+    return tele.span(name, layer=layer)
+
+
+def _lead_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
+    """A leading dense layer: the unit's attention kind, a dense FFN."""
+    return (LayerSpec(cfg.unit_pattern[0].kind),)
+
+
+def _refuse_mla(cfg: ArchConfig, what: str) -> None:
+    if cfg.kv_lora_rank or cfg.first_dense_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} of a model with latent attention (MLA) or "
+            f"leading dense layers is not ported (no latent KV cache); "
+            f"such a model trains only")
 
 
 def _kind_member_index(cfg: ArchConfig) -> dict:
@@ -152,7 +203,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
             p["k_norm"] = {"scale": full((n, hd), 1.0)}
         return p
 
-    def mamba():
+    def mla(n=n):
+        r, dn, dr, dv = cfg.kv_lora_rank, cfg.qk_nope_head_dim, \
+            cfg.qk_rope_head_dim, cfg.v_head_dim
+        return {"wq": normal((n, d, H, dn + dr), d ** -0.5),
+                "wkv_a": normal((n, d, r + dr), d ** -0.5),
+                "kv_norm": {"scale": full((n, r), 1.0)},
+                "wkv_b": normal((n, r, H, dn + dv), r ** -0.5),
+                "wo": normal((n, H, dv, d), (H * dv) ** -0.5)}
+
+    def mamba(n=n):
         di, ds, dr = cfg.d_inner, cfg.ssm_d_state, cfg.dt_rank
         a_log = torch.log(torch.arange(1, ds + 1, dtype=f32, device=dev))
         return {"in_proj": normal((n, d, 2 * di), d ** -0.5),
@@ -165,7 +225,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 "D": full((n, di), 1.0),
                 "out_proj": normal((n, di, d), di ** -0.5)}
 
-    def mlstm():
+    def mlstm(n=n):
         di = xlstm.mlstm_inner(cfg)
         b_if = torch.cat([torch.zeros(H, device=dev),
                           torch.full((H,), 3.0, device=dev)])
@@ -177,7 +237,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                 "b_if": b_if.repeat(n, 1),
                 "down": normal((n, di, d), di ** -0.5)}
 
-    def slstm():
+    def slstm(n=n):
         dh = d // H
         return {"w_in": normal((n, d, 4 * d), d ** -0.5),
                 "r": normal((n, 4, H, dh, dh), dh ** -0.5),
@@ -187,14 +247,17 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     def moe_ffn():
         E, ffe = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
         p = {"router": normal((n, d, E), d ** -0.5, f32),
-             "w_gate": normal((n, E, d, ffe), d ** -0.5),
-             "w_up": normal((n, E, d, ffe), d ** -0.5),
-             "w_down": normal((n, E, ffe, d), ffe ** -0.5)}
+             "w_gate": normal((n, cfg.held, d, ffe), d ** -0.5),
+             "w_up": normal((n, cfg.held, d, ffe), d ** -0.5),
+             "w_down": normal((n, cfg.held, ffe, d), ffe ** -0.5)}
+        if cfg.router_score == "sigmoid":
+            p["e_score_correction_bias"] = normal((n, E), moe.BIAS_INIT, f32)
         if cfg.n_shared_experts:
             p["shared"] = mlp(cfg.n_shared_experts * ffe, "swiglu")
         return p
 
-    blocks = {"attn": attn, "mamba": mamba, "mlstm": mlstm, "slstm": slstm}
+    blocks = {"attn": attn, "mla": mla, "mamba": mamba, "mlstm": mlstm,
+              "slstm": slstm}
 
     def cut(prefix: str, tree: dict) -> dict:
         if shard is None:
@@ -203,9 +266,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
         return layout_lib.unflatten([p[len(prefix) + 1:] for p, _ in flat],
                                     [shard(p, t) for p, t in flat])
 
-    def member(spec: LayerSpec):
+    def member(spec: LayerSpec, n=n):
         p = {"norm1": {"scale": full((n, d), 1.0)},
-             spec.kind: blocks[spec.kind]()}
+             spec.kind: blocks[spec.kind](n)}
         if spec.kind == "attn" and cfg.is_encdec:
             p["xnorm"] = {"scale": full((n, d), 1.0)}
             p["xattn"] = attn(qk_norm=False)
@@ -214,7 +277,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
             if spec.moe:
                 p["moe"] = moe_ffn()
             else:
-                p["mlp"] = mlp(cfg.d_ff, cfg.act)
+                p["mlp"] = mlp(cfg.d_ff, cfg.act, n)
         return p
 
     params = {
@@ -223,6 +286,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
                   for i, spec in enumerate(cfg.unit_pattern)},
         "final_norm": {"scale": full((d,), 1.0)},
     }
+    if cfg.first_dense_layers:
+        params["lead"] = {"m0": cut("lead/m0", member(
+            _lead_pattern(cfg)[0], cfg.first_dense_layers))}
     if not cfg.tie_embeddings:
         params["unembed"] = cut("unembed", {
             "w": normal((d, cfg.vocab), d ** -0.5)})
@@ -267,11 +333,17 @@ def _unembed_p(params: dict) -> dict:
     return params.get("unembed") or {"w": params["embed"]["table"].T}
 
 
-def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig):
-    """The member's FFN sub-block: (x + ffn(x), the MoE aux loss or None)."""
+def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig,
+         layer: int = 0):
+    """The member's FFN sub-block: (x + ffn(x), the MoE aux loss or None);
+    ``layer``: the model's layer index, for its span."""
     if not spec.ffn:
         return x, None
     h2 = layers.rmsnorm(mp["norm2"], x, cfg.norm_eps)
+    if spec.moe and cfg.router_score == "sigmoid":
+        with _span("model.moe", layer) as sp:
+            y, aux = moe.moe_apply_held(mp["moe"], h2, cfg, sp)
+        return x + y, aux
     if spec.moe:
         y, aux = moe.moe_apply(mp["moe"], h2, cfg)
         return x + y, aux
@@ -280,16 +352,22 @@ def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig):
 
 def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
                       positions: torch.Tensor, enc_out,
-                      remat: bool = False):
+                      remat: bool = False, pattern=None, layer: int = 0):
     """One unit over the full sequence: (x, promoted to float32 by the
     float32 blocks; the unit's aux loss, float32).  A decoder attention
     member of an encoder-decoder cross-attends to ``enc_out`` after its
-    self-attention.  ``remat`` checkpoints the attention blocks."""
+    self-attention.  ``remat`` checkpoints the attention blocks.
+    ``pattern``: the unit's members (``cfg.unit_pattern``, or a leading
+    dense layer's); ``layer``: the model's index of its first member."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, spec in enumerate(cfg.unit_pattern):
+    for i, spec in enumerate(pattern or cfg.unit_pattern):
         mp = unit_p[f"m{i}"]
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
-        if spec.kind == "attn":
+        if spec.kind == "mla":
+            with _span("model.mla", layer + i):
+                x = x + attention.mla_forward(mp["mla"], h, cfg, positions,
+                                              remat=remat)
+        elif spec.kind == "attn":
             x = x + attention.attn_forward(mp["attn"], h, cfg, positions,
                                            window=cfg.sliding_window,
                                            remat=remat)
@@ -303,7 +381,7 @@ def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
             x = x + xlstm.mlstm_forward(mp["mlstm"], h, cfg)
         elif spec.kind == "slstm":
             x = x + xlstm.slstm_forward(mp["slstm"], h, cfg)
-        x, a = _ffn(mp, spec, x, cfg)
+        x, a = _ffn(mp, spec, x, cfg, layer + i)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -350,10 +428,11 @@ def _embed_inputs(params: dict, batch: dict, cfg: ArchConfig,
 
 
 def _unit(x: torch.Tensor, unit_p: dict, cfg: ArchConfig, positions,
-          enc_out, remat: bool):
+          enc_out, remat: bool, pattern=None, layer: int = 0):
     """One unit of the train path: the residual leaves it in
     ``RESIDUAL_DTYPE``."""
-    x, a = _apply_unit_train(x, unit_p, cfg, positions, enc_out, remat)
+    x, a = _apply_unit_train(x, unit_p, cfg, positions, enc_out, remat,
+                             pattern, layer)
     return x.to(RESIDUAL_DTYPE), a
 
 
@@ -373,8 +452,14 @@ def _backbone_train(params: dict, batch: dict, cfg: ArchConfig,
     x = x.to(RESIDUAL_DTYPE)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     sliced = tp.splits(cfg.d_model)
-    for unit_p in _unbind(params["units"], cfg.n_units):
-        args = (unit_p, cfg, positions, enc_out, remat)
+    n_lead, width = cfg.first_dense_layers, len(cfg.unit_pattern)
+    units = [(unit_p, None, n_lead + u * width) for u, unit_p in
+             enumerate(_unbind(params["units"], cfg.n_units))]
+    if n_lead:
+        units = [(unit_p, _lead_pattern(cfg), l) for l, unit_p in
+                 enumerate(_unbind(params["lead"], n_lead))] + units
+    for unit_p, pattern, layer in units:
+        args = (unit_p, cfg, positions, enc_out, remat, pattern, layer)
         if not (remat and torch.is_grad_enabled()):
             x, a = _unit(x, *args)
         elif sliced:
@@ -428,7 +513,9 @@ def value_and_grad(params: dict, batch: dict, cfg: ArchConfig,
     paths = [p for p, _ in flat]
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
     loss, _ = loss_fn(layout_lib.unflatten(paths, leaves), batch, cfg, remat)
-    grads = torch.autograd.grad(loss, leaves)
+    # a leaf the loss does not reach (a router's selection bias) gets zeros
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
     return loss.detach(), layout_lib.unflatten(paths, grads)
 
 
@@ -453,8 +540,10 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
     ``model``: the size of the mesh's model axis; each leaf is then the
     one rank's ``sharding.cache_spec`` slice, the dims it splits over
-    ``model`` cut by ``model`` (``batch`` is the rank's already)."""
+    ``model`` cut by ``model`` (``batch`` is the rank's already).  A
+    model with latent attention or leading dense layers is refused."""
     _check_kinds(cfg)
+    _refuse_mla(cfg, "serving")
     counts = _kind_counts(cfg)
     n = cfg.n_units
     shapes: dict = {"pos": ((), torch.int32, 0)}
@@ -593,6 +682,7 @@ def prefill(params: dict, batch: dict, cfg: ArchConfig,
     The cache is updated in place (and returned): two runs that must not
     share state need caches of their own.
     """
+    _refuse_mla(cfg, "prefill")
     x, _, enc_out = _embed_inputs(params, batch, cfg)
     logits = _serve(params, x, cfg, cache, None, enc_out)
     cache["pos"] = torch.full((), x.shape[1], dtype=torch.int32,
@@ -608,6 +698,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     a token.  The cache is updated in place (and returned), ``pos``
     advanced by one.
     """
+    _refuse_mla(cfg, "decode")
     x = layers.embed(params["embed"], tokens, cfg.vocab)
     pos = cache["pos"]
     logits = _serve(params, x, cfg, cache, pos)

@@ -100,8 +100,11 @@ def shapes(tree):
 
 def port_fields(cfg) -> dict:
     """``cfg``'s value of every field of the port's ArchConfig (either
-    package's config), the layer specs as tuples."""
-    out = {f.name: getattr(cfg, f.name)
+    package's config), the layer specs as tuples.  A field the port adds
+    (latent attention, leading dense layers, the sigmoid router) reads as
+    its default on the reference's config, so a zoo arch must leave it
+    there."""
+    out = {f.name: getattr(cfg, f.name, f.default)
            for f in dataclasses.fields(tmc.ArchConfig)}
     out["unit_pattern"] = [(s.kind, s.moe, s.ffn) for s in cfg.unit_pattern]
     out["hd"], out["n_units"] = cfg.hd, cfg.n_units
