@@ -75,8 +75,9 @@ In order, it
    request), from torch-initialised random weights, each checked against
    a fresh prefill of the same sequence (a MoE arch on a second run under
    no-drop capacity), with parameters, cache bytes, prefill seconds,
-   decode ms/token beside its HBM bound, peak memory and a profiled
-   decode step; the ring buffer of qwen3-0.6b (window 32, a prompt of 48)
+   decode ms/token beside its HBM bound and the decode steps by path
+   (all but the first replayed from a CUDA graph, checked), peak memory
+   and a profiled eager decode step; the ring buffer of qwen3-0.6b (window 32, a prompt of 48)
    against a big cache; xlstm-350m's recurrent state after a prompt of
    136 (longer than the mLSTM's chunk) against a fresh prefill; and 2
    rounds of FetchSGD on qwen3-0.6b, qwen2-moe-a2.7b (8 of its 24
@@ -1661,10 +1662,15 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
         prefix = extra["patches"].shape[1] if "patches" in extra else 0
         serve_lm.serve(cfg, params, prompts, 2, dev, **extra)  # warm-up
         ops.reset_launch_counts()
+        steps0 = dict(serve_lm.DECODE_STEPS)
         res = serve_lm.serve(cfg, params, prompts, SERVE_TOKENS, dev,
                              **extra)
+        steps = {k: v - steps0[k] for k, v in serve_lm.DECODE_STEPS.items()}
         check(not any(ops.launch_counts().values()),
               f"{arch}: serving launches no sketch kernel")
+        check(steps == {"graph": SERVE_TOKENS - 2, "eager": 1},
+              f"{arch}: {SERVE_TOKENS - 2} of the {SERVE_TOKENS - 1} decode "
+              f"steps replayed from a CUDA graph ({steps})")
         check(bool(torch.isfinite(res.logits).all())
               and res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS),
               f"{arch}: {SERVE_TOKENS} tokens a sequence, finite logits")
@@ -1721,7 +1727,7 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
                    xattn_cache_bytes=xattn_bytes,
                    prefill_s=res.prefill_s,
                    decode_ms_per_token=res.decode_s * 1e3,
-                   hbm_bound_ms_per_token=bound_ms,
+                   hbm_bound_ms_per_token=bound_ms, decode_steps=steps,
                    bound_reads_every_expert=bool(cfg.n_experts),
                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                    gap=checked["gap"], logit_scale=checked["logit_scale"],
@@ -1735,6 +1741,8 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
               f"{bound_ms:.6f} ms"
               + (", every expert's weights: capacity dispatch runs each "
                  "expert on its slots" if cfg.n_experts else "")
+              + f"; decode steps: {steps['graph']} graph, "
+              f"{steps['eager']} eager"
               + f"), peak {run['peak_mem_gib']:.3f} GiB; profiled: "
               f"{prof['kernels_per_token']:.0f} kernels/token, device busy "
               f"{prof['device_busy_ms']:.6f} of {prof['wall_ms']:.6f} ms "

@@ -12,6 +12,12 @@ example feeds zeros, the port standard-normal values from a seeded
 as well as the prompt and the new tokens (the reference example leaves
 the prefix out of the cache's size, so its decode overwrites live slots).
 
+On a CUDA device :func:`serve` runs the first decode step eagerly,
+captures the next into a CUDA graph and replays that graph for the rest of
+the call, so the host launches one graph a token instead of every op of
+every layer; the CPU steps eagerly.  ``DECODE_STEPS`` counts the steps by
+the path they ran on.
+
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --device cpu
 """
 
@@ -25,6 +31,16 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.models import transformer
+
+# decode steps by the path they ran on: replayed from a CUDA graph, or eager
+DECODE_STEPS = {"graph": 0, "eager": 0}
+
+# Per device, kept from call to call: the side stream of the decode's first
+# step and its capture, since cuBLAS keeps a workspace for each stream it
+# runs on; and the last graph captured, whose memory pool the next capture
+# shares, since a pool of each call's own would stay reserved after its
+# graph is gone.
+_CAPTURE: dict = {}
 
 
 @dataclasses.dataclass
@@ -87,16 +103,79 @@ def serve(cfg, params: dict, prompts: torch.Tensor, n_tokens: int,
         sync()
         prefill_s = time.perf_counter() - t0
         tok = logits.argmax(dim=-1, keepdim=True)
-        out = [tok]
         t0 = time.perf_counter()
-        for _ in range(n_tokens - 1):
-            logits, cache = transformer.decode_step(params, tok, cfg, cache)
-            tok = logits.argmax(dim=-1, keepdim=True)
-            out.append(tok)
+        graphed = device.type == "cuda" and n_tokens > 2
+        if graphed:
+            tokens = tok.new_empty((B, n_tokens))
+            tokens[:, :1] = tok
+            graph, static = capture_decode(params, tok, cfg, cache, tokens,
+                                           prefix + S)
+            for _ in range(n_tokens - 2):
+                graph.replay()
+            logits = static.clone()
+            DECODE_STEPS["eager"] += 1
+            DECODE_STEPS["graph"] += n_tokens - 2
+        else:
+            out = [tok]
+            for _ in range(n_tokens - 1):
+                logits, cache = transformer.decode_step(params, tok, cfg,
+                                                        cache)
+                tok = logits.argmax(dim=-1, keepdim=True)
+                out.append(tok)
+            tokens = torch.cat(out, dim=1)
+            DECODE_STEPS["eager"] += n_tokens - 1
         sync()
         decode_s = (time.perf_counter() - t0) / max(n_tokens - 1, 1)
-    return ServeResult(torch.cat(out, dim=1), logits, cache, prefill_s,
-                       decode_s)
+    if graphed:
+        # The side stream's cuBLAS workspace would stay allocated beside
+        # the caller's stream's through the next call's prefill; nothing
+        # runs now, and each stream takes a workspace again when it next
+        # calls cuBLAS.
+        torch._C._cuda_clearCublasWorkspaces()
+    return ServeResult(tokens, logits, cache, prefill_s, decode_s)
+
+
+def capture_decode(params: dict, tok: torch.Tensor, cfg, cache: dict,
+                   tokens: torch.Tensor, first: int):
+    """The first decode step of a call, run eagerly, then the next one
+    captured into a CUDA graph, which capture does not run: the
+    embedding of ``tok`` (B, 1), every unit over ``cache`` (updated in
+    place, ``pos`` advanced in place), the argmax written back into
+    ``tok``, and that token written into ``tokens`` (B, n) at column
+    ``pos - first`` by a device index, ``first`` being the first decode
+    step's position (the prefill's length).  Each replay is then one more
+    step.  Returns (the graph, its logits (B, V)), which hold the last
+    replayed step's logits.  The graph reads ``params``, ``tok``,
+    ``cache`` and ``tokens`` where they lie: the caller keeps them.
+
+    The eager step is a real step and the warm-up that creates cuBLAS's
+    lazy state; it runs on the side stream the capture uses.  The capture
+    allocates from the pool of the device's last graph, which is never
+    replayed again.  Under no autograd."""
+    dev = tok.device
+
+    def step():
+        logits, _ = transformer.decode_step(params, tok, cfg, cache)
+        tok.copy_(logits.argmax(dim=-1, keepdim=True))
+        tokens.index_copy_(1, (cache["pos"] - first).long().reshape(1), tok)
+        return logits
+
+    side, last = _CAPTURE.get(dev) or (torch.cuda.Stream(dev), None)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        step()
+        # capture_begin rather than torch.cuda.graph, whose entry empties
+        # the allocator's cache: the next call's prefill would then
+        # cudaMalloc its memory anew
+        graph.capture_begin(pool=None if last is None else last.pool())
+        try:
+            logits = step()
+        finally:
+            graph.capture_end()
+    _CAPTURE[dev] = side, graph
+    torch.cuda.current_stream(dev).wait_stream(side)
+    return graph, logits
 
 
 def main(argv=None, log=print) -> ServeResult:

@@ -696,11 +696,11 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
     The position is read from ``cache["pos"]`` on the device: no host sync
     a token.  The cache is updated in place (and returned), ``pos``
-    advanced by one.
+    advanced by one in place, so a CUDA graph that captured the step reads
+    the next position at its next replay.
     """
     _refuse_mla(cfg, "decode")
     x = layers.embed(params["embed"], tokens, cfg.vocab)
-    pos = cache["pos"]
-    logits = _serve(params, x, cfg, cache, pos)
-    cache["pos"] = pos + 1
+    logits = _serve(params, x, cfg, cache, cache["pos"])
+    cache["pos"].add_(1)
     return logits, cache

@@ -1014,6 +1014,115 @@ def test_encdec_and_frontends_on_the_card_match_the_cpu(dev, arch):
     assert int(caches[1]["pos"]) == int(caches[0]["pos"]) == prefix + 20
 
 
+# one smoke config of each decode kind the zoo serves: dense GQA, the
+# sliding-window ring (a window of 8 under a call of 12 + 10), capacity
+# MoE, mamba (jamba: mamba, attention and MoE), mLSTM/sLSTM, the
+# encoder-decoder and the vision prefix
+GRAPH_ARCHS = {"internlm2-1.8b": {}, "qwen3-0.6b": dict(sliding_window=8),
+               "qwen2-moe-a2.7b": {}, "jamba-v0.1-52b": {}, "xlstm-350m": {},
+               "whisper-small": {}, "pixtral-12b": {}}
+GRAPH_PROMPT, GRAPH_TOKENS = 12, 10
+
+
+def _graph_case(arch, dev):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as tt
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), **GRAPH_ARCHS[arch])
+    params = L.tree_map(lambda x: x.to(dev), tt.init_params(cfg, seed=0))
+    gen = torch.Generator().manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab, (2, GRAPH_PROMPT), generator=gen)
+    extra = serve_lm.frontend_inputs(cfg, 2, gen)
+    prefix = cfg.n_patches if cfg.frontend == "vision" else 0
+    return cfg, params, prompts, extra, prefix
+
+
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_serve_graph_replays_the_eager_decode(dev, arch):
+    """``serve`` on the card runs one eager decode step and replays a
+    captured one ``n_tokens - 2`` times, counted in ``DECODE_STEPS``; its
+    tokens and last logits are exactly those of the same call stepped
+    eagerly through ``decode_step`` on the card (the graph replays the
+    eager step's kernels, TF32 off), its cache ends at ``prefix + S +
+    n_tokens - 1``, and a second call with the same prompts gives the
+    same tokens and logits (no state carried between calls)."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as tt
+
+    cfg, params, prompts, extra, prefix = _graph_case(arch, dev)
+    on = {k: v.to(dev) for k, v in extra.items()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            logits, cache = tt.prefill(
+                params, {"tokens": prompts.to(dev), **on}, cfg,
+                tt.init_cache(cfg, 2, prefix + GRAPH_PROMPT + GRAPH_TOKENS,
+                              device=dev))
+            out = [logits.argmax(-1, keepdim=True)]
+            for _ in range(GRAPH_TOKENS - 1):
+                logits, cache = tt.decode_step(params, out[-1], cfg, cache)
+                out.append(logits.argmax(-1, keepdim=True))
+        want = torch.cat(out, dim=1)
+        before = dict(serve_lm.DECODE_STEPS)
+        res = serve_lm.serve(cfg, params, prompts, GRAPH_TOKENS, dev, **extra)
+        assert serve_lm.DECODE_STEPS == {
+            "graph": before["graph"] + GRAPH_TOKENS - 2,
+            "eager": before["eager"] + 1}
+        again = serve_lm.serve(cfg, params, prompts, GRAPH_TOKENS, dev,
+                               **extra)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gap = float((res.logits - logits).abs().max() / logits.abs().max())
+    assert torch.equal(res.tokens, want), (res.tokens, want)
+    assert gap == 0.0, f"{arch}: logits off the eager step's by {gap:.3e}"
+    assert int(res.cache["pos"]) == prefix + GRAPH_PROMPT + GRAPH_TOKENS - 1
+    for key in ("k", "v", "pos_arr"):
+        if "attn" in cache:
+            assert torch.equal(res.cache["attn"][key], cache["attn"][key])
+    assert torch.equal(again.tokens, res.tokens)
+    assert torch.equal(again.logits, res.logits)
+
+
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_serve_graph_replays_make_no_host_sync(dev, arch):
+    """The captured decode step's replays run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    host sync, and each advances the cache's position by one and fills
+    the next column of the tokens."""
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import transformer as tt
+
+    cfg, params, prompts, extra, prefix = _graph_case(arch, dev)
+    first = prefix + GRAPH_PROMPT
+    with torch.no_grad():
+        logits, cache = tt.prefill(
+            params, {"tokens": prompts.to(dev),
+                     **{k: v.to(dev) for k, v in extra.items()}}, cfg,
+            tt.init_cache(cfg, 2, first + GRAPH_TOKENS, device=dev))
+        tok = logits.argmax(-1, keepdim=True)
+        tokens = torch.full((2, GRAPH_TOKENS), -1, dtype=tok.dtype,
+                            device=dev)
+        tokens[:, :1] = tok
+        graph, static = serve_lm.capture_decode(params, tok, cfg, cache,
+                                                tokens, first)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(GRAPH_TOKENS - 2):
+                graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    assert int(cache["pos"]) == first + GRAPH_TOKENS - 1
+    assert bool((tokens >= 0).all())
+    assert torch.equal(tokens[:, -1:], tok)
+    assert torch.equal(static.argmax(-1, keepdim=True), tok)
+
+
 def _mesh_world_of_1(rank: int) -> dict:
     """A world of 1 on the card (nccl): each policy's first step against
     the single-device ``F.step`` on the same weights and batch."""

@@ -427,3 +427,55 @@ def test_cli_serves_the_moe_and_recurrent_archs(arch):
     assert re.fullmatch(r"decoded 3 tokens/seq at \d+\.\d ms/token", got[1])
     assert [ln.split(": ")[0] for ln in got[2:]] == ["  seq0", "  seq1"]
     assert res.tokens.shape == (2, 3) and int(res.cache["pos"]) == 5 + 2
+
+
+# -- the decode's position and its path ---------------------------------------
+
+def test_decode_step_advances_pos_in_place():
+    """``decode_step`` adds one to the tensor ``prefill`` put in the cache,
+    which stays the cache's ``pos``, and the steps read what they read
+    when each step bound a new tensor: the logits equal those of a twin
+    cache whose ``pos`` is replaced by a copy before every step."""
+    cfg = tconfigs.get_smoke("internlm2-1.8b")
+    params = tt.init_params(cfg, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 10),
+                         generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        caches = [tt.prefill(params, {"tokens": toks[:, :6]}, cfg,
+                             tt.init_cache(cfg, 2, 10))[1] for _ in range(2)]
+        pos = caches[0]["pos"]
+        for t in range(6, 10):
+            caches[1]["pos"] = caches[1]["pos"].clone()
+            got, cache = tt.decode_step(params, toks[:, t:t + 1], cfg,
+                                        caches[0])
+            want, _ = tt.decode_step(params, toks[:, t:t + 1], cfg,
+                                     caches[1])
+            assert cache["pos"] is pos and int(pos) == t + 1
+            assert torch.equal(got, want)
+    assert pos.shape == () and pos.dtype == torch.int32
+
+
+@pytest.mark.parametrize("n_tokens", [1, 2, 5])
+def test_serve_on_the_cpu_steps_eagerly(n_tokens):
+    """On the CPU ``serve`` counts ``n_tokens - 1`` eager decode steps and
+    no graph step, and gives what a prefill and a loop of
+    ``decode_step`` give: the tokens, the last logits (the prefill's
+    when ``n_tokens`` is 1) and the cache's position."""
+    cfg = tconfigs.get_smoke("qwen3-0.6b")
+    params = tt.init_params(cfg, seed=0)
+    prompts = torch.randint(0, cfg.vocab, (2, 7),
+                            generator=torch.Generator().manual_seed(6))
+    before = dict(serve_lm.DECODE_STEPS)
+    res = serve_lm.serve(cfg, params, prompts, n_tokens, device="cpu")
+    assert serve_lm.DECODE_STEPS == {"graph": before["graph"],
+                                     "eager": before["eager"] + n_tokens - 1}
+    with torch.no_grad():
+        logits, cache = tt.prefill(params, {"tokens": prompts}, cfg,
+                                   tt.init_cache(cfg, 2, 7 + n_tokens))
+        out = [logits.argmax(-1, keepdim=True)]
+        for _ in range(n_tokens - 1):
+            logits, cache = tt.decode_step(params, out[-1], cfg, cache)
+            out.append(logits.argmax(-1, keepdim=True))
+    assert torch.equal(res.tokens, torch.cat(out, dim=1))
+    assert torch.equal(res.logits, logits)
+    assert int(res.cache["pos"]) == 7 + n_tokens - 1
