@@ -158,11 +158,6 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 OUT = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-
 ROWS, COLS, K = 5, 1 << 20, 25_000       # the --full sketch
 CHUNK = 1 << 24                          # encode / estimate check chunk
 SMALL = 1 << 19                          # a chunk under the binned threshold
@@ -185,8 +180,9 @@ def check(cond: bool, what: str) -> None:
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     """Least time on the card: bytes at HBM rate vs f32 ops at peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    from repro_torch.launch import mesh
+    t_bytes = n_bytes / mesh.HBM_BW * 1e3
+    t_ops = n_ops / mesh.PEAK_FLOPS_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1396,25 +1392,25 @@ def telemetry_phase(torch, dev, smi_line: str) -> dict:
             now = time.perf_counter()
             seconds.append(now - clock[0])
             clock[0] = now
-        mem, tele = obs.MemorySink(), None
+        mem, tele = obs.MemorySink(), obs.NOOP
         if path:
             tele = obs.Telemetry([obs.JsonlSink(path), mem], trace=True)
             tele.emit_meta(run="chip_smoke", phase="telemetry")
-            ops.set_telemetry(tele)
             fed.Orchestrator._emit_health = timed_health
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         clock[0] = time.perf_counter()
         try:
-            res = simulate.run_simulation(
-                cfg, method="fetchsgd", rounds=rounds, clients_per_round=cpr,
-                fs_cfg=fs_cfg, dataset=dataset, fed_cfg=fed_cfg, device=dev,
-                progress=progress, telemetry=tele, health_every=1)
+            with obs.active(tele):    # the kernel dispatch traced too
+                res = simulate.run_simulation(
+                    cfg, method="fetchsgd", rounds=rounds,
+                    clients_per_round=cpr, fs_cfg=fs_cfg, dataset=dataset,
+                    fed_cfg=fed_cfg, device=dev, progress=progress,
+                    telemetry=tele, health_every=1)
             counts = ops.launch_counts()
         finally:
-            if tele:
+            if path:
                 fed.Orchestrator._emit_health = emit_health
-                ops.set_telemetry(None)
                 tele.close()
         return res, seconds, mem.events, counts
 
@@ -1638,7 +1634,7 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
 
     from repro_torch import configs
     from repro_torch.kernels import ops
-    from repro_torch.launch import serve_lm
+    from repro_torch.launch import mesh, serve_lm
     from repro_torch.models import moe, transformer
 
     print(f"serve on {smi_line}")
@@ -1714,7 +1710,7 @@ def serve_phase(torch, dev, smi_line: str) -> dict:
                           for kind in ("mamba", "mlstm", "slstm")
                           if kind in cache)
         bound_ms = (p_bytes + kv_bytes + xattn_bytes + 2 * state_bytes) \
-            / HBM_BYTES_PER_S * 1e3
+            / mesh.HBM_BW * 1e3
         tok = res.tokens[:, -1:]
         prof = profile_decode(torch, lambda: transformer.decode_step(
             params, tok, cfg, res.cache))
@@ -3099,10 +3095,12 @@ def dryrun_phase(torch, dev, smi_line: str, mesh: dict) -> dict:
     s = statistics.median(seconds)
     model_flops, step_flops = roof.model_flops, roof.step_flops
     shares = {
-        "step_flops_share_of_bf16_peak": step_flops / (s * 989e12),
-        "mfu_bf16_peak": model_flops / (s * 989e12),
-        "step_flops_share_of_f32_peak": step_flops / (s * F32_OPS_PER_S),
-        "mfu_f32_peak": model_flops / (s * F32_OPS_PER_S)}
+        "step_flops_share_of_bf16_peak":
+            step_flops / (s * mesh_lib.PEAK_FLOPS_BF16),
+        "mfu_bf16_peak": model_flops / (s * mesh_lib.PEAK_FLOPS_BF16),
+        "step_flops_share_of_f32_peak":
+            step_flops / (s * mesh_lib.PEAK_FLOPS_F32),
+        "mfu_f32_peak": model_flops / (s * mesh_lib.PEAK_FLOPS_F32)}
     print(f"dryrun: s/round {seconds} (median {s:.6f}) ({smi_line})")
     print(f"dryrun: model_flops {model_flops:.6e} step_flops "
           f"{step_flops:.6e} counted {roof.flops:.6e} ({smi_line})")

@@ -354,7 +354,9 @@ class Orchestrator:
         span = self.tele.span
         with span("fed.client.batch", client=c):
             batch = self._client_batch(c)
-        with span("fed.client.grad", client=c), transformer.traced(self.tele):
+        # the model's block spans only: kernel spans (sketch, server step)
+        # are the run owner's choice, by its own obs.active
+        with span("fed.client.grad", client=c), obs.active(self.tele):
             loss, grads = self.grad_fn(params, batch)
         with span("fed.client.sketch", client=c):
             table = self._sketch(grads)

@@ -6,7 +6,7 @@ takes the plain PyTorch twin in ``ref``.  There is no implementation knob
 and no fallback from the card to the plain version.  (The reference's
 ``--sketch-impl`` and its TPU VMEM size gates have no counterpart here.)
 
-Telemetry: ``set_telemetry(tele)`` arms a span around each dispatch when
+Telemetry: inside ``obs.active(tele)`` a dispatch opens a span when
 ``tele`` traces: ``kernel.<name>[cuda:<path>]`` on the card (the encode's
 path is ``binned`` or ``one_pass``, the fused estimate and selection's
 ``select``, the others' ``sm_90a``) and ``kernel.<name>[torch:eager]`` on
@@ -28,22 +28,16 @@ from . import ref
 from . import server_step as cuda_ss
 
 
-_TELE = obs.NOOP
-
-
-def set_telemetry(tele) -> None:
-    """Route kernel-dispatch spans to ``tele`` (None resets to no-op)."""
-    global _TELE
-    _TELE = tele if tele is not None else obs.NOOP
-
-
-def _span(name: str, operand: torch.Tensor, path: str = "sm_90a"):
-    """A live span only when tracing is on."""
-    if not _TELE.trace_enabled:
+def _span(name: str, operand: torch.Tensor, path="sm_90a"):
+    """The dispatch's span on the active telemetry, named only when that
+    traces; ``path`` may be a function of no argument, called only then."""
+    tele = obs.current()
+    if not tele.trace_enabled:
         return obs.NULL_SPAN
     if operand.is_cuda:
-        return _TELE.span(f"kernel.{name}[cuda:{path}]")
-    return _TELE.span(f"kernel.{name}[torch:eager]")
+        path = path() if callable(path) else path
+        return tele.span(f"kernel.{name}[cuda:{path}]")
+    return tele.span(f"kernel.{name}[torch:eager]")
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -61,9 +55,8 @@ def sketch_encode(values: torch.Tensor, offset: int, rows: int, cols: int,
     on_cuda = _on_cuda(values)
     fn = cuda_cs.sketch_encode if on_cuda else ref.sketch_encode
     # the path only names the span: read the bin geometry only when tracing
-    binned = (on_cuda and _TELE.trace_enabled
-              and cuda_cs.bins().use(values.numel(), rows, cols))
-    with _span("encode", values, "binned" if binned else "one_pass"):
+    with _span("encode", values, lambda: "binned" if cuda_cs.bins().use(
+            values.numel(), rows, cols) else "one_pass"):
         return fn(values, offset, rows, cols, key, out=out)
 
 

@@ -42,7 +42,6 @@ from repro_torch.core import layout as layout_lib
 from repro_torch.core import topk as TK
 from repro_torch.core.layout import tree_map
 from repro_torch.data import federated, synthetic
-from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer
 from repro_torch.models.config import reduce_for_smoke
 from repro_torch.optim import triangular
@@ -351,19 +350,17 @@ def main(argv=None, log=print):
         seed=args.seed, checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         vectorized=args.population is not None)
-    if telemetry.trace_enabled:
-        kernel_ops.set_telemetry(telemetry)
     try:
-        res = run_simulation(cfg, method=args.method, rounds=args.rounds,
-                             clients_per_round=args.clients_per_round,
-                             peak_lr=args.peak_lr, dataset=dataset,
-                             seed=args.seed, aggregate=args.aggregate,
-                             fed_cfg=fed_cfg if args.method == "fetchsgd"
-                             else None, device=args.device,
-                             telemetry=telemetry,
-                             health_every=args.health_every)
+        with obs.active(telemetry):
+            res = run_simulation(
+                cfg, method=args.method, rounds=args.rounds,
+                clients_per_round=args.clients_per_round,
+                peak_lr=args.peak_lr, dataset=dataset, seed=args.seed,
+                aggregate=args.aggregate,
+                fed_cfg=fed_cfg if args.method == "fetchsgd" else None,
+                device=args.device, telemetry=telemetry,
+                health_every=args.health_every)
     finally:
-        kernel_ops.set_telemetry(None)
         telemetry.close()
     if args.metrics:
         log(f"telemetry: {args.metrics}")

@@ -49,11 +49,10 @@ Latent attention (MLA) runs on the train path only: its serving needs a
 latent KV cache the port does not have, so the serve entry points refuse
 such a model.
 
-Spans: inside ``traced(tele)`` (the orchestrator's clients) with tracing
-on, each forward of an MLA block opens a ``model.mla`` span and each
-forward of a sigmoid-routed expert layer a ``model.moe`` span, with the
-layer's index; the backward passes are not spanned.  With tracing off a
-span costs one attribute check.
+Spans: inside ``obs.active(tele)`` (the orchestrator's client gradients)
+with tracing on, each forward of an MLA block opens a ``model.mla`` span
+and each forward of a sigmoid-routed expert layer a ``model.moe`` span,
+with the layer's index; the backward passes are not spanned.
 
 Inside ``tp.model_parallel`` the serve path runs tensor-parallel too:
 each rank holds its ``param_spec`` shard of the parameters and its
@@ -63,8 +62,6 @@ over the group.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 from torch.utils import checkpoint
@@ -86,28 +83,6 @@ def _check_kinds(cfg: ArchConfig) -> None:
     for spec in cfg.unit_pattern:
         if spec.kind not in KINDS:
             raise ValueError(f"unknown unit kind {spec.kind!r}")
-
-
-# The telemetry the model's block spans go to, innermost ``traced`` last.
-_TELE: list = [obs.NOOP]
-
-
-@contextlib.contextmanager
-def traced(tele):
-    """Open the model's block spans (``model.mla``, ``model.moe``) on
-    ``tele`` while inside; the spans are live only when ``tele`` traces."""
-    _TELE.append(tele)
-    try:
-        yield
-    finally:
-        _TELE.pop()
-
-
-def _span(name: str, layer: int):
-    tele = _TELE[-1]
-    if not tele.trace_enabled:
-        return obs.NULL_SPAN
-    return tele.span(name, layer=layer)
 
 
 def _lead_pattern(cfg: ArchConfig) -> tuple[LayerSpec, ...]:
@@ -307,20 +282,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None,
     return params
 
 
-def _index(tree, i: int):
-    """Unit ``i``'s tree of a tree of stacked leaves: a ``leaf[i]`` select
-    on each (the serve path, which runs under no autograd)."""
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _unbind(tree, n: int) -> list:
     """The ``n`` per-unit trees of a tree of stacked ``(n, ...)`` leaves,
-    each leaf split once with ``torch.unbind`` (the train path).  The
-    backward then has one ``UnbindBackward`` a leaf, which stacks the
-    units' gradients in a single write; a ``leaf[u]`` select a unit would
-    fill a full-size zero tensor for each unit and add the ``n`` up."""
+    each leaf split once with ``torch.unbind`` into views (the train and
+    serve paths).  The backward then has one ``UnbindBackward`` a leaf,
+    which stacks the units' gradients in a single write; a ``leaf[u]``
+    select a unit would fill a full-size zero tensor for each unit and
+    add the ``n`` up."""
     if isinstance(tree, dict):
         per = {k: _unbind(v, n) for k, v in tree.items()}
         return [{k: v[u] for k, v in per.items()} for u in range(n)]
@@ -341,7 +309,7 @@ def _ffn(mp: dict, spec: LayerSpec, x: torch.Tensor, cfg: ArchConfig,
         return x, None
     h2 = layers.rmsnorm(mp["norm2"], x, cfg.norm_eps)
     if spec.moe and cfg.router_score == "sigmoid":
-        with _span("model.moe", layer) as sp:
+        with obs.current().span("model.moe", layer=layer) as sp:
             y, aux = moe.moe_apply_held(mp["moe"], h2, cfg, sp)
         return x + y, aux
     if spec.moe:
@@ -364,7 +332,7 @@ def _apply_unit_train(x: torch.Tensor, unit_p: dict, cfg: ArchConfig,
         mp = unit_p[f"m{i}"]
         h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
         if spec.kind == "mla":
-            with _span("model.mla", layer + i):
+            with obs.current().span("model.mla", layer=layer + i):
                 x = x + attention.mla_forward(mp["mla"], h, cfg, positions,
                                               remat=remat)
         elif spec.kind == "attn":
@@ -654,9 +622,9 @@ def _serve(params: dict, x: torch.Tensor, cfg: ArchConfig, cache: dict,
     logits (B, V), gathered over the model group when the unembedding is
     the rank's vocab shard."""
     kmi = _kind_member_index(cfg)
-    for u in range(cfg.n_units):
+    for u, unit_p in enumerate(_unbind(params["units"], cfg.n_units)):
         for i, spec in enumerate(cfg.unit_pattern):
-            mp = _index(params["units"][f"m{i}"], u)
+            mp = unit_p[f"m{i}"]
             h = layers.rmsnorm(mp["norm1"], x, cfg.norm_eps)
             st = {k: v[u, kmi[i]] for k, v in cache[spec.kind].items()}
             x = x + _serve_member(spec.kind, mp[spec.kind], h, cfg, st, pos)

@@ -26,7 +26,8 @@ from .schema import (EVENT_SCHEMAS, validate_event,           # noqa: F401
 from .sinks import (JsonlSink, MemorySink, NullSink, Sink,    # noqa: F401
                     StdoutSummarySink, parse_jsonl)
 from .telemetry import (NOOP, NoopTelemetry, Telemetry,       # noqa: F401
-                        add_cli_flags, env_fingerprint, from_args)
+                        active, add_cli_flags, current, env_fingerprint,
+                        from_args)
 from .trace import NULL_SPAN, NullSpan, Span                  # noqa: F401
 
 # NOTE: ``repro_torch.obs.sketch_health`` is imported lazily by its users

@@ -19,6 +19,11 @@ sinks.  The hot-path contract:
   one final ``metrics`` snapshot event, and closes the sinks; safe to
   call twice.
 
+Code below the orchestrator (the model's block spans, the kernel
+dispatch) takes no telemetry argument: it opens its spans on
+``current()``, the telemetry of the innermost ``active(tele)`` (``NOOP``
+outside any).
+
 Observability must never perturb the simulation: nothing here touches
 any RNG, and instruments only *read* run state.  The determinism test in
 ``tests/test_torch_obs.py`` pins that (instrumented == uninstrumented
@@ -27,6 +32,7 @@ any RNG, and instruments only *read* run state.  The determinism test in
 
 from __future__ import annotations
 
+import contextlib
 import platform
 import sys
 import time
@@ -168,6 +174,27 @@ class NoopTelemetry:
 
 
 NOOP = NoopTelemetry()
+
+
+# The ambient telemetry, innermost ``active`` last.
+_ACTIVE: list = [NOOP]
+
+
+@contextlib.contextmanager
+def active(tele):
+    """Open the spans of the code below the orchestrator (model blocks,
+    kernel dispatches) on ``tele`` while inside; they are live only when
+    ``tele`` traces."""
+    _ACTIVE.append(tele)
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+def current():
+    """The innermost active telemetry, or ``NOOP``."""
+    return _ACTIVE[-1]
 
 
 # -- CLI plumbing (launch/simulate) ---------------------------------------

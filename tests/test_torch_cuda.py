@@ -318,12 +318,9 @@ def test_dispatch_sends_the_fused_selection_to_its_kernel(dev):
     ops.reset_launch_counts()
     sink = obs.MemorySink()
     tele = obs.Telemetry([sink], trace=True)
-    ops.set_telemetry(tele)
-    try:
+    with obs.active(tele):
         vals, idx = ops.sketch_estimate_topk(table, 0, 1000, 64)
-    finally:
-        ops.set_telemetry(None)
-        tele.close()          # the span waits for its device time till here
+    tele.close()              # the span waits for its device time till here
     assert ops.launch_counts()["estimate"] == 1 and vals.is_cuda
     assert [e["name"] for e in sink.events if e["type"] == "span"] \
         == ["kernel.estimate[cuda:select]"]

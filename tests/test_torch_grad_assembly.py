@@ -82,9 +82,15 @@ def _stacked(path: str) -> bool:
     return path.startswith(STACKED)
 
 
+def _select(tree, u: int):
+    if isinstance(tree, dict):
+        return {k: _select(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
 def _select_assembly(tree, n):
     """The per-unit trees as ``leaf[u]`` selects: the select assembly."""
-    return [tt._index(tree, u) for u in range(n)]
+    return [_select(tree, u) for u in range(n)]
 
 
 def _leaves(params):

@@ -354,20 +354,38 @@ def test_profile_round_puts_idle_time_down_to_the_innermost_span():
     assert pr.idle_s(busy, 0, 120) == pytest.approx(90e-9)
 
 
-def test_kernel_spans_only_when_tracing():
-    """With tracing off the dispatcher hands out the shared null span."""
-    for tele in (None, obs.NOOP, obs.Telemetry([obs.MemorySink()])):
-        ops.set_telemetry(tele)
-        assert ops._span("estimate", torch.ones(1)) is obs.NULL_SPAN
+def _dispatch():
+    table = ops.sketch_encode(torch.ones(10), 0, 3, 64)
+    ops.sketch_estimate(table, 0, 10)
+
+
+@pytest.mark.parametrize("case", ["noop", "quiet", "tracing", "nested"])
+def test_kernel_spans_only_when_tracing(case):
+    """A dispatch opens its span on the innermost ``obs.active`` telemetry,
+    and only when that traces (the shared null span otherwise); a nested
+    ``obs.active`` gives the outer one back on exit and after an
+    exception inside it."""
     sink = obs.MemorySink()
-    ops.set_telemetry(obs.Telemetry([sink], trace=True))
-    try:
-        table = ops.sketch_encode(torch.ones(10), 0, 3, 64)
-        ops.sketch_estimate(table, 0, 10)
-    finally:
-        ops.set_telemetry(None)
-    assert [e["name"] for e in sink.events] == [
-        "kernel.encode[torch:eager]", "kernel.estimate[torch:eager]"]
+    tele = {"noop": obs.NOOP, "quiet": obs.Telemetry([sink])}.get(
+        case, obs.Telemetry([sink], trace=True))
+    inner = obs.MemorySink()
+    with obs.active(tele):
+        if case == "nested":
+            with obs.active(obs.Telemetry([inner], trace=True)):
+                _dispatch()
+            assert obs.current() is tele
+            with pytest.raises(RuntimeError), obs.active(obs.NOOP):
+                raise RuntimeError
+        assert obs.current() is tele
+        if not tele.trace_enabled:
+            assert ops._span("estimate", torch.ones(1)) is obs.NULL_SPAN
+        _dispatch()
+    assert obs.current() is obs.NOOP
+    want = ["kernel.encode[torch:eager]", "kernel.estimate[torch:eager]"]
+    assert [e["name"] for e in sink.events] == (
+        want if tele.trace_enabled else [])
+    assert [e["name"] for e in inner.events] == (
+        want if case == "nested" else [])
 
 
 def test_cli_flags_and_fingerprint(tmp_path):
@@ -497,11 +515,10 @@ def runs(micro, tmp_path_factory):
         sink = obs.MemorySink()
         tele = obs.Telemetry([obs.JsonlSink(path), sink], trace=True)
         tele.emit_meta(run="test", case=case)
-        ops.set_telemetry(tele)
         try:
-            inst = port_run(micro, case, tele)
+            with obs.active(tele):
+                inst = port_run(micro, case, tele)
         finally:
-            ops.set_telemetry(None)
             tele.close()
         out[case] = dict(ref=jsink.events, events=sink.events, path=path,
                          inst=inst, base=port_run(micro, case))
@@ -630,4 +647,4 @@ def test_simulate_command_line_stream_validates(tmp_path):
     events = obs.parse_jsonl(path)
     assert len(of_type(events, "round")) == 2
     assert of_type(events, "meta")[0]["run"] == "simulate"
-    assert ops._TELE is obs.NOOP
+    assert obs.current() is obs.NOOP
