@@ -19,9 +19,24 @@ def sample_clients(n_clients: int, w: int, round_idx: int,
 
 
 def to_batch(client_batch: dict, device) -> dict:
-    """A client's numpy tokens and labels as int64 tensors on ``device``."""
-    return {k: torch.as_tensor(client_batch[k], dtype=torch.int64,
-                               device=device) for k in ("tokens", "labels")}
+    """A client's numpy tokens and labels as int64 tensors on ``device``.
+
+    On a CUDA device each is staged as int64 in pinned host memory and
+    copied with ``non_blocking=True``, so the host goes on dispatching
+    while the device still runs earlier work.  The staging comes from
+    PyTorch's caching host allocator, which hands a freed block out again
+    only after the copy that read it has run on its stream.
+    """
+    if torch.device(device).type != "cuda":
+        return {k: torch.as_tensor(client_batch[k], dtype=torch.int64,
+                                   device=device)
+                for k in ("tokens", "labels")}
+    out = {}
+    for k in ("tokens", "labels"):
+        src = torch.as_tensor(client_batch[k])
+        staged = torch.empty(src.shape, dtype=torch.int64, pin_memory=True)
+        out[k] = staged.copy_(src).to(device, non_blocking=True)
+    return out
 
 
 def cohort_batch(dataset, clients, pad_to: int | None = None) -> dict:

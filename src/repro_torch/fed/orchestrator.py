@@ -45,6 +45,12 @@ encoder (``core.gather_sketch``, the reference's choice), on the card
 can differ in the last bits: the encode kernel's float atomics sum in no
 fixed order.
 
+The loop over a round's clients waits for the device nowhere: a batch goes
+up from pinned memory without blocking (``data.federated.to_batch``), and
+each client's loss stays on the device until the round, or a vectorized
+chunk, reads them all at once.  So on the card the host dispatches the
+next client's gradient while the device still runs this client's sketch.
+
 Checkpoints (``checkpoint_dir``, ``fed.checkpoint``) hold the weights,
 the server state, the async late buffer and, on the event clock, the
 virtual clock and the in-flight events (lazy ones computed for the save),
@@ -178,6 +184,13 @@ def _add_weighted(acc, grads: dict, w: float):
     """acc + w * grads over a parameter tree (acc None: w * grads)."""
     wg = layout_lib.tree_map(lambda g: w * g, grads)
     return wg if acc is None else layout_lib.tree_map(torch.add, acc, wg)
+
+
+def _floats(losses: list) -> list[float]:
+    """Clients' 0-dim device losses as Python floats, in one read: a
+    float32 scalar gives the same float through ``tolist`` as through
+    ``float``."""
+    return torch.stack(losses).tolist() if losses else []
 
 
 def _round_rng(seed: int, round_idx: int,
@@ -515,16 +528,18 @@ class Orchestrator:
 
         A plain loop over the per-client gradient and encoder the
         per-object paths call, so each (loss, table) is the one a
-        per-object run computes from the same weights.  Both vectorized
+        per-object run computes from the same weights; the chunk's losses
+        are read once, after its last client is enqueued.  Both vectorized
         loops (lazy-event materialization and the round-clock cohort
         sweep) share it.
         """
-        out = []
+        losses, tables = [], []
         for c in ids:
             batch, loss, grads, table = self._client_work(params, c)
             del batch, grads
-            out.append((float(loss), table))
-        return out
+            losses.append(loss)
+            tables.append(table)
+        return list(zip(_floats(losses), tables))
 
     def run_round(self, r: int) -> RoundRecord:
         if self._wall0 is None:
@@ -550,7 +565,7 @@ class Orchestrator:
                         continue
                     batch, loss, grads, table = self._client_work(
                         self.params, int(c))
-                    losses.append(float(loss))
+                    losses.append(loss)
                     w = self._client_weight(int(c), batch)
                     if sample_health and fate == 0:
                         grad_acc = _add_weighted(grad_acc, grads, w)
@@ -572,6 +587,9 @@ class Orchestrator:
                     fresh, weights=fresh_w, round_idx=r)
                 sp.sync(table)
             self._server_update(table, stats, r)
+            # the round's one read of its losses, once every client and the
+            # server step are enqueued: no client waits for the one before
+            losses = _floats(losses)
             traffic = self._record_traffic(stats.upload_bytes,
                                            len(fresh) + n_straggling)
             rec = RoundRecord(

@@ -735,32 +735,69 @@ def _micro_round(dev, tele, clients=3):
 
 
 def test_micro_round_syncs_are_the_codes(dev):
-    """A micro round's ``fed.round`` counts three syncs a client: the two
-    copies of its tokens and labels from pageable host memory
-    (``federated.to_batch``, ``non_blocking=False``) and ``float(loss)``;
-    and three in the server update: the chunk tables that
+    """A micro round's ``fed.round`` counts four syncs, whatever its
+    number of clients: the one read of its clients' losses
+    (``torch.stack(losses).tolist()``, once the server update is
+    enqueued) and three in the server update: the chunk tables that
     ``topk.global_ids`` (offsets) and ``topk.apply_delta`` (leaf, start)
     build with ``torch.tensor(list, device=...)``, each a pageable copy.
-    Each client's three spans carry its id, the batch span both copies,
-    the gradient and sketch spans none."""
+    No client's span counts one: ``federated.to_batch`` copies from pinned
+    memory without blocking and the loss stays on the device, so the host
+    dispatches the next client while the card runs this one's sketch.
+    Each client's three spans carry its id."""
     from repro_torch import obs
-    sink = obs.MemorySink()
-    tele = obs.Telemetry([sink], trace=True)
-    rec = _micro_round(dev, tele)
-    tele.close()
-    spans = [e for e in sink.events if e["type"] == "span"]
-    (rnd,) = [e for e in spans if e["name"] == "fed.round"]
-    assert rnd["syncs"] == 3 * len(rec.cohort) + 3 and rec.n_dropped == 0
-    syncs = {e["name"]: e["syncs"] for e in spans if e["depth"] == 1}
-    assert syncs == {"fed.clients": 3 * len(rec.cohort),
-                     "fed.aggregate": 0, "fed.server_update": 3}
-    for step, n in (("batch", 2), ("grad", 0), ("sketch", 0)):
-        got = [e for e in spans if e["name"] == f"fed.client.{step}"]
-        assert [e["client"] for e in got] == rec.cohort
-        assert all(e["syncs"] == n and e["dev_s"] >= 0 for e in got)
-    (clients,) = [e for e in spans if e["name"] == "fed.clients"]
-    assert sum(e["dev_s"] for e in spans if e["name"] in (
-        "fed.client.grad", "fed.client.sketch")) <= clients["dur_s"]
+    for n in (3, 6):
+        sink = obs.MemorySink()
+        tele = obs.Telemetry([sink], trace=True)
+        rec = _micro_round(dev, tele, clients=n)
+        tele.close()
+        spans = [e for e in sink.events if e["type"] == "span"]
+        (rnd,) = [e for e in spans if e["name"] == "fed.round"]
+        assert len(rec.cohort) == n and rec.n_dropped == 0
+        assert rnd["syncs"] == 1 + 3
+        syncs = {e["name"]: e["syncs"] for e in spans if e["depth"] == 1}
+        assert syncs == {"fed.clients": 0, "fed.aggregate": 0,
+                         "fed.server_update": 3}
+        for step in ("batch", "grad", "sketch"):
+            got = [e for e in spans if e["name"] == f"fed.client.{step}"]
+            assert [e["client"] for e in got] == rec.cohort
+            assert all(e["syncs"] == 0 and e["dev_s"] >= 0 for e in got)
+        (clients,) = [e for e in spans if e["name"] == "fed.clients"]
+        assert sum(e["dev_s"] for e in spans if e["name"] in (
+            "fed.client.grad", "fed.client.sketch")) <= clients["dur_s"]
+
+
+def test_to_batch_copies_from_pinned_memory_without_a_sync(dev):
+    """``federated.to_batch`` on the card makes no host-device sync and
+    returns int64 tensors equal to its numpy input.  The batches, of
+    several sizes (two alike), are built back to back behind a sleeping
+    kernel, so every copy is still queued when the next batch is staged:
+    staging handed out again before its copy landed would show as a wrong
+    batch.  On the CPU it returns what it always has,
+    ``torch.as_tensor(x, dtype=torch.int64)``."""
+    from repro_torch.data import federated
+    rng = np.random.default_rng(0)
+    inputs = [{"tokens": rng.integers(0, 92544, (n, 32), dtype=np.int32),
+               "labels": rng.integers(-1, 92544, (n, 32), dtype=np.int64)}
+              for n in (4, 4, 1, 64, 7, 3)]
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(200_000_000)         # ~0.1 s of a busy stream
+        got = [federated.to_batch(b, dev) for b in inputs]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    for b, g in zip(inputs, got):
+        for k in ("tokens", "labels"):
+            assert g[k].device.type == "cuda" and g[k].dtype == torch.int64
+            np.testing.assert_array_equal(g[k].cpu().numpy(), b[k])
+    for b in inputs:
+        cpu = federated.to_batch(b, torch.device("cpu"))
+        for k in ("tokens", "labels"):
+            want = torch.as_tensor(b[k], dtype=torch.int64)
+            assert cpu[k].device.type == "cpu" and cpu[k].dtype == torch.int64
+            assert torch.equal(cpu[k], want)
 
 
 def test_untraced_round_records_no_event_and_arms_no_check(dev, monkeypatch):

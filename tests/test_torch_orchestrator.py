@@ -22,6 +22,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro import fed as jfed
 from repro.core import fetchsgd as JF
@@ -31,6 +32,8 @@ from repro.optim import linear_decay as j_linear_decay
 from repro_torch import fed as tfed
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import fetchsgd as TF
+from repro_torch.core import layout as L
+from repro_torch.data import federated
 from repro_torch.launch import simulate as tsim
 from repro_torch.optim import linear_decay as t_linear_decay
 from repro_torch.optim import triangular as t_triangular
@@ -127,6 +130,30 @@ def test_zero_first_learning_rate_moves_nothing(micro):
         == [without_loss(r) for r in want.records]
     assert got.traffic == want.traffic
     np.testing.assert_allclose(got.losses[:2], want.losses[:2], rtol=1e-5)
+
+
+@pytest.mark.parametrize("vectorized", [False, True],
+                         ids=["round", "vectorized"])
+def test_round_loss_is_the_cohort_mean_of_each_clients_loss(micro,
+                                                            vectorized):
+    """``RoundRecord.loss`` is, bit for bit, the cohort-order mean of each
+    client's ``float(loss)`` from ``grad_fn`` on the round's weights: the
+    loop keeps the losses on the device and reads them at once, which
+    changes no float."""
+    _, tcfg, jp, ds = micro
+    orch = tfed.Orchestrator(
+        tcfg, TF.FetchSGDConfig(**SKETCH),
+        tfed.FederationConfig(rounds=2, clients_per_round=4, seed=2,
+                              vectorized=vectorized),
+        ds, params=params_from_numpy(jp, "cpu"),
+        lr_fn=t_linear_decay(LR, 2), device="cpu")
+    for r in range(2):
+        before = L.tree_map(torch.clone, orch.params)
+        rec = orch.run_round(r)
+        assert rec.n_fresh == len(rec.cohort) == 4
+        losses = [float(orch.grad_fn(before, federated.to_batch(
+                      ds.client_batch(c), "cpu"))[0]) for c in rec.cohort]
+        assert rec.loss == sum(losses) / len(losses)
 
 
 def test_cases_exercise_every_fate(reference_runs):
